@@ -50,7 +50,7 @@ from recon3d_tpu_torch.kernels import warp  # noqa: E402
 from tests.render import render_views  # noqa: E402
 from tests.torch_scene import sparse_from_depth, surface_gate  # noqa: E402
 
-# H100 SXM published peaks (on-chip-measurement guide): HBM bytes/s and
+# H100 SXM published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
