@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (recon3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # about 2-4 minutes on an H100
+    python3 chip_smoke.py    # about 3-5 minutes on an H100
 
 Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
@@ -13,7 +13,15 @@ Phases, each of which passes or raises:
   5. main path: the port's CLI `--mvs --from-colmap` on the 50-view 480x640
      rendered scene (tests/render.py), launch counts reset just before and
      read just after, dense cloud gated against the scene's true surfaces
-     at the level the JAX reference reaches there (NORTH_STAR_GATE).
+     at the level the JAX reference reaches there (NORTH_STAR_GATE);
+  6. sfm_front: the SfM front end (SfMPipeline.load_images ->
+     extract_features -> match_image_pairs at the default configuration) on
+     the same 50 PNGs, its match graph gated against the scene's true
+     epipolar geometry (SFM_FRONT_GATE), run cold, warm and under the
+     profiler; then a small 12-view run at match_window=2 that enters the
+     long-span rematch. This phase launches no kernel of the port's: the
+     JAX package computes it outside any Pallas kernel, so it is plain
+     PyTorch.
 
 Prints the kernel table as one JSON line, then the card line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero, printing no
@@ -48,7 +56,7 @@ from recon3d_tpu_torch.io.colmap import save_colmap_text  # noqa: E402
 from recon3d_tpu_torch.io.ply import load_ply  # noqa: E402
 from recon3d_tpu_torch.kernels import warp  # noqa: E402
 from tests.render import render_views  # noqa: E402
-from tests.torch_scene import sparse_from_depth, surface_gate  # noqa: E402
+from tests.torch_scene import match_graph_levels, sparse_from_depth, surface_gate  # noqa: E402
 
 # H100 SXM published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -64,6 +72,21 @@ ARC_OFFSET = ARC_STEP * (N_VIEWS - 1) / 2.0
 # tests/torch_reference_levels.py), far from the 0.1 / 0.6 that it passes on
 # the small scene; the gate sits 11-13% beyond the reference.
 NORTH_STAR_GATE = (0.30, 0.33)
+
+# Gate of the sfm_front phase against the scene's true epipolar geometry:
+# every adjacent pair kept, one component, and over the inlier matches of
+# all kept non-aux pairs a median Sampson distance under the true F below
+# 1.0 px with at least 95% under the RANSAC threshold of 2.0 px. The JAX
+# reference on the same PNGs (tests/torch_reference_levels.py, part 4, on
+# the CPU) passes it.
+SFM_FRONT_GATE = {"median_sampson_px": 1.0, "share_under_threshold": 0.95}
+# The small long-span runs at match_window=2: 12 views of 240x320 on an arc
+# wide enough that probe pairs of span >= 4 fail at load resolution and go
+# to the 2x rematch (on the CPU none of them reaches min_matches there
+# either), and 10 views of 120x160, where the rematched pairs do and are
+# then rejected by the homography gate (the scene is made of planes).
+LONG_SPAN = [dict(n_views=12, image_size=(240, 320), arc_step=0.2),
+             dict(n_views=10, image_size=(120, 160), arc_step=0.12)]
 
 # K1 at the shapes of one keep_best evaluation on the main path: a batch of
 # 4 views x J=4 sources = 16 planes; 13 candidate fields at the 30x40
@@ -247,7 +270,9 @@ def small_scene_check() -> None:
     gate(points, 0.1, 0.6, "small scene")
 
 
-def main_path(work: Path, card: str) -> dict:
+def render_north_star(work: Path) -> dict:
+    """The north-star scene as PNGs in work/images and a COLMAP model of
+    its true poses in work/model; returns the scene (with K, Rs, ts)."""
     from PIL import Image
 
     t0 = time.perf_counter()
@@ -263,7 +288,11 @@ def main_path(work: Path, card: str) -> dict:
                      sparse_from_depth(scene, per_view=100), None, names=names)
     print(f"[main] rendered {N_VIEWS} views of {IMAGE_SIZE} and their COLMAP "
           f"model in {time.perf_counter() - t0:.1f} s (host)", flush=True)
+    return scene
 
+
+def main_path(work: Path, card: str) -> dict:
+    img_dir = work / "images"
     out, stats_path = work / "recon", work / "stats.json"
     warp.counts.reset()
     t0 = time.perf_counter()
@@ -294,38 +323,172 @@ def main_path(work: Path, card: str) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in stats["patchmatch_breakdown_s"].items())
           + f"; {len(points) / pm:.1f} dense points/s and {mpix / pm:.3f} MP/s of "
           f"input through patchmatch_mvs; K1 launches {launches}", flush=True)
-    profile_main_path([str(img_dir), "--mvs", "--from-colmap", str(work / "model"),
-                       "--output", str(work / "recon_profiled"), "--device", "cuda"],
-                      wall)
+    argv = [str(img_dir), "--mvs", "--from-colmap", str(work / "model"),
+            "--output", str(work / "recon_profiled"), "--device", "cuda"]
+    profile_run(lambda: cli_main(argv), wall, "main path", "tent_warp_kernel", top=8)
     return {"launches": launches, "points": len(points), "median": med,
             "share": frac, "wall_s": wall, "stages_s": stages,
             "patchmatch_breakdown_s": stats["patchmatch_breakdown_s"]}
 
 
-def profile_main_path(argv, wall: float) -> None:
-    """Run the main path once more under torch.profiler: device time by
-    kernel, K1's share of it, and the device's busy share of `wall`, the
-    unprofiled run's time (the profiler slows the host several times)."""
+def profile_run(fn, wall: float, what: str, highlight: str = "", top: int = 5) -> dict:
+    """Run fn() once more under torch.profiler: device time by kernel, the
+    device's busy and idle share of `wall` (the unprofiled run's time: the
+    profiler slows the host several times), the `top` operations with most
+    device time, and the share of the kernels whose name holds `highlight`."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        cli_main(argv)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     if not events:
-        print("[profile] the profiler recorded no device time: not measured")
-        return
+        print(f"[profile] {what}: the profiler recorded no device time: not measured")
+        return {}
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    k1 = [e for e in events if "tent_warp_kernel" in e.key]
-    k1_s = sum(e.self_device_time_total for e in k1) / 1e6
-    print(f"[profile] main path under the profiler: device busy {busy:.4f} s in "
-          f"{sum(e.count for e in events)} kernels and copies, "
-          f"{100 * busy / wall:.1f}% of the unprofiled run's {wall:.3f} s; "
-          f"tent_warp {k1_s:.4f} s in {sum(e.count for e in k1)} launches "
-          f"({100 * k1_s / busy:.1f}% of device time); top (s):")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    n_kernels = sum(e.count for e in events)
+    line = (f"[profile] {what} under the profiler: device busy {busy:.4f} s in "
+            f"{n_kernels} kernels and copies, {100 * busy / wall:.1f}% of the "
+            f"unprofiled run's {wall:.3f} s (idle {100 * (1 - busy / wall):.1f}%)")
+    if highlight:
+        hl = [e for e in events if highlight in e.key]
+        hl_s = sum(e.self_device_time_total for e in hl) / 1e6
+        line += (f"; {highlight} {hl_s:.4f} s in {sum(e.count for e in hl)} launches "
+                 f"({100 * hl_s / busy:.1f}% of device time)")
+    print(line + "; top (s):")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    for e in ranked:
         print(f"[profile]   {e.self_device_time_total / 1e6:8.4f}  x{e.count:<6d} "
               f"{e.key[:90]}")
+    return {"device_busy_s": busy, "kernels": n_kernels,
+            "idle_share": 1 - busy / wall,
+            "top": [[e.key[:90], e.self_device_time_total / 1e6, e.count] for e in ranked]}
+
+
+def run_front(img_dir: Path) -> dict:
+    """Stages 1-3 of the port's SfMPipeline on `img_dir` at the default
+    configuration on the card, each stage timed to a device sync with its
+    own peak of allocated device memory."""
+    from recon3d_tpu_torch.config import ReconstructionConfig
+    from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+    pipe = SfMPipeline(config=ReconstructionConfig(), device="cuda")
+    times, peaks = {}, {}
+    for stage, fn in (("load_images", lambda: pipe.load_images(str(img_dir))),
+                      ("extract_features", pipe.extract_features),
+                      ("match_image_pairs", pipe.match_image_pairs)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[stage] = time.perf_counter() - t0
+        peaks[stage] = torch.cuda.max_memory_allocated()
+    return {"pipe": pipe, "seconds": times, "peak_bytes": peaks}
+
+
+def sfm_front(work: Path, scene: dict, card: str) -> dict:
+    """The sfm_front phase: cold run (gated), warm run (the times kept),
+    profiled rerun, then the small long-span run."""
+    img_dir = work / "images"
+    warp.counts.reset()
+    cold = run_front(img_dir)
+    pipe = cold["pipe"]
+    if pipe.features_stacked.desc.device.type != "cuda":
+        raise AssertionError("sfm_front: the features are not on the card")
+    counts = pipe.stats["features_per_image"]
+    levels = match_graph_levels(pipe.matches, pipe.kp_xy, scene,
+                                len(pipe._components(N_VIEWS)),
+                                pipe.config.match.ransac_threshold_px)
+    del pipe
+    warm = run_front(img_dir)
+    stats = warm["pipe"].stats
+    report = {
+        "phase": "sfm_front", "card": card,
+        "views": N_VIEWS, "image_size": list(IMAGE_SIZE),
+        "features_per_image": {"mean": float(np.mean(counts)), "min": int(min(counts)),
+                               "max": int(max(counts))},
+        "selection_capacity": stats["selection_capacity"],
+        "candidate_pairs": stats["num_candidate_pairs"],
+        "pairs_kept": levels["pairs_kept"],
+        "seconds_cold": cold["seconds"], "seconds": warm["seconds"],
+        "extract_detail_s": stats["extract_detail_s"],
+        "match_detail_s": stats["match_detail_s"],
+        "peak_device_bytes": warm["peak_bytes"],
+        "levels": levels,
+        "port_kernel_launches": warp.counts.kernel + warp.counts.plain,
+    }
+    print(json.dumps(report), flush=True)
+
+    failed = []
+    if levels["adjacent_kept"] != levels["adjacent_total"]:
+        failed.append("an adjacent pair was dropped")
+    if levels["components"] != 1:
+        failed.append(f"{levels['components']} components")
+    if not levels["median_sampson_px"] < SFM_FRONT_GATE["median_sampson_px"]:
+        failed.append("median Sampson distance under the true F")
+    if not levels["share_under_threshold"] >= SFM_FRONT_GATE["share_under_threshold"]:
+        failed.append("share of inlier matches under the threshold")
+    if warm["pipe"].stats["num_pairs"] != levels["pairs_kept"]:
+        failed.append("the warm run kept another number of pairs than the cold one")
+    if failed:
+        raise AssertionError("sfm_front fails its gate: " + "; ".join(failed))
+
+    seconds = warm["seconds"]
+    del warm
+
+    from recon3d_tpu_torch.config import ReconstructionConfig
+    from recon3d_tpu_torch.io.dataset import load_image_set
+    from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+    # The profiled rerun, stage by stage, against the warm run's times.
+    p = SfMPipeline(config=ReconstructionConfig(), device="cuda")
+    p.set_image_set(load_image_set(str(img_dir), device="cuda"))
+    prof = {stage: profile_run(getattr(p, stage), seconds[stage], f"sfm_front {stage}")
+            for stage in ("extract_features", "match_image_pairs")}
+    if all(prof.values()):
+        busy = sum(v["device_busy_s"] for v in prof.values())
+        wall = seconds["extract_features"] + seconds["match_image_pairs"]
+        print(f"[profile] sfm_front, both stages: device busy {busy:.4f} s in "
+              f"{sum(v['kernels'] for v in prof.values())} kernels and copies, "
+              f"{100 * busy / wall:.1f}% of the warm run's {wall:.3f} s "
+              f"(idle {100 * (1 - busy / wall):.1f}%)", flush=True)
+    report["profile"] = prof
+    report["long_span"] = long_span_run()
+    return report
+
+
+def long_span_run() -> list:
+    """Small scenes at match_window=2: failed probe pairs of span >= 4 go
+    through SfMPipeline._rematch_long_span (which returns at once above
+    320 px, so the full-width run never enters it)."""
+    import dataclasses
+
+    from recon3d_tpu_torch.camera import Camera
+    from recon3d_tpu_torch.config import ReconstructionConfig
+    from recon3d_tpu_torch.io.dataset import image_set_from_arrays
+    from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+    cfg = ReconstructionConfig()
+    cfg = cfg.replace(sfm=dataclasses.replace(cfg.sfm, match_window=2))
+    outs = []
+    for scene_kw in LONG_SPAN:
+        scene = render_views(**scene_kw)
+        pipe = SfMPipeline(config=cfg, device="cuda")
+        pipe.set_image_set(image_set_from_arrays(scene["images"], Camera.from_matrix(scene["K"])))
+        pipe.extract_features()
+        pipe.match_image_pairs()
+        torch.cuda.synchronize()
+        out = {k: pipe.stats[k] for k in ("rematch_attempted", "rematch_recovered",
+                                          "rematch_rejected", "num_pairs",
+                                          "num_candidate_pairs")}
+        out["components"] = len(pipe._components(scene_kw["n_views"]))
+        print(f"[long span] {scene_kw['n_views']} views of {scene_kw['image_size']}: "
+              f"{json.dumps(out)}", flush=True)
+        if out["rematch_attempted"] == 0:
+            raise AssertionError("long-span run: no failed probe pair reached the rematch")
+        outs.append(out)
+    return outs
 
 
 def main() -> int:
@@ -351,7 +514,9 @@ def main() -> int:
     shapes = kernel_phase()
     small_scene_check()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        scene = render_north_star(Path(tmp))
         result = main_path(Path(tmp), card)
+        sfm_front(Path(tmp), scene, card)
 
     head = shapes[0]
     kernels = [{

@@ -6,7 +6,9 @@ CUDA kernels live in csrc/ and are bound in kernels/. Entry points run on
 "cuda" unless the caller passes device="cpu".
 
 Ported so far: dense reconstruction from known poses, `python -m
-recon3d_tpu_torch.cli IMAGES --mvs --from-colmap MODEL_DIR`.
+recon3d_tpu_torch.cli IMAGES --mvs --from-colmap MODEL_DIR`, and the SfM
+front end, `sfm.pipeline.SfMPipeline` up to `match_image_pairs` (CLAHE +
+SIFT extraction, batched pair matching, F-RANSAC, the match graph).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Camera intrinsics and extrinsics as plain dataclasses over tensors.
 
 PyTorch port of recon3d_tpu/camera.py (Camera :26-109, CameraPose :112-155,
-stack_poses :158-162). The JAX package uses
+stack_poses :158-162, load_calibration :171-182). The JAX package uses
 flax.struct pytrees so cameras batch under vmap; here they are plain
 dataclasses holding float32 torch tensors, batched by a leading dimension.
 
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -79,3 +80,14 @@ def stack_poses(poses) -> CameraPose:
     return CameraPose(
         R=torch.stack([p.R for p in poses]), t=torch.stack([p.t for p in poses])
     )
+
+
+def load_calibration(path: str) -> Camera:
+    """Load a .npz calibration file (keys mtx, dist) into a Camera; a
+    distortion vector shorter than 5 is zero-padded."""
+    data = np.load(path)
+    K = np.asarray(data["mtx"], dtype=np.float32)
+    dist = np.asarray(data["dist"], dtype=np.float32).reshape(-1)
+    if dist.size < 5:
+        dist = np.pad(dist, (0, 5 - dist.size))
+    return Camera(K=torch.from_numpy(K), dist=torch.from_numpy(dist[:5].copy()))

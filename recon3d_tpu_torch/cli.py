@@ -84,7 +84,9 @@ def unported_modes(args) -> list:
     """The requested modes this port cannot run yet, as flag names."""
     out = []
     if not args.from_colmap:
-        out.append("SfM (running without --from-colmap)")
+        out.append("the SfM back end (running without --from-colmap: the front end, "
+                   "sfm.pipeline.SfMPipeline up to match_image_pairs, is ported; "
+                   "registration and bundle adjustment are not)")
     for flag, on in [
         ("--stereo", args.stereo), ("--dense", args.dense),
         ("--combined", args.combined), ("--mesh", args.mesh),

@@ -1,10 +1,13 @@
 """Carry the JAX package's state across to the port.
 
-The dense-from-known-poses path has no trained weights: its parameters are
-the configuration tree and the camera. These helpers rebuild them from
-plain Python and numpy values, so that both packages can run one
-configuration (dataclasses.asdict of a recon3d_tpu ReconstructionConfig,
-np.asarray of its Camera's K and dist).
+The ported paths have no trained weights: their parameters are the
+configuration tree and the camera, and the state that passes between their
+stages is the padded keypoint sets and the verified match graph. These
+helpers rebuild all of them from plain Python and numpy values (never JAX
+objects), so that both packages can run one configuration
+(dataclasses.asdict of a recon3d_tpu ReconstructionConfig, np.asarray of
+its Camera's K and dist) and hand one another's features to their
+matchers.
 """
 
 from __future__ import annotations
@@ -14,9 +17,11 @@ import typing
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from recon3d_tpu_torch.camera import Camera
 from recon3d_tpu_torch.config import ReconstructionConfig
+from recon3d_tpu_torch.ops.sift import SiftFeatures
 
 
 def _from_dict(cls, d: dict):
@@ -57,3 +62,47 @@ def poses_from_numpy(
     ts = np.asarray(ts, np.float32).reshape(len(Rs), 3)
     ids = range(len(Rs)) if ids is None else ids
     return {int(i): (Rs[k], ts[k]) for k, i in enumerate(ids)}
+
+
+_SIFT_DTYPES = {"xy": np.float32, "scale": np.float32, "angle": np.float32,
+                "response": np.float32, "desc": np.float32, "valid": np.bool_}
+
+
+def sift_features_from_numpy(arrays: Dict[str, np.ndarray], device="cpu") -> SiftFeatures:
+    """The port's SiftFeatures from a dict of numpy arrays keyed by field
+    (xy, scale, angle, response, desc, valid), for one image (K, ...) or a
+    stacked batch (V, K, ...): np.asarray of each field of the JAX
+    extractor's SiftFeatures."""
+    missing = set(_SIFT_DTYPES) - set(arrays)
+    if missing:
+        raise KeyError(f"SiftFeatures fields missing: {sorted(missing)}")
+    return SiftFeatures(**{
+        name: torch.from_numpy(np.array(arrays[name], dtype)).to(device)
+        for name, dtype in _SIFT_DTYPES.items()
+    })
+
+
+def sift_features_to_numpy(feats: SiftFeatures) -> Dict[str, np.ndarray]:
+    """The reverse: a dict of numpy arrays, which recon3d_tpu's SiftFeatures
+    takes field by field (jnp.asarray of each)."""
+    return {name: getattr(feats, name).detach().cpu().numpy() for name in _SIFT_DTYPES}
+
+
+def matches_from_numpy(
+    matches: Dict[Tuple[int, int], Dict[str, np.ndarray]]
+) -> Dict[Tuple[int, int], Dict[str, np.ndarray]]:
+    """The `matches` dictionary of SfMPipeline, {(i, j): {idx1, idx2, F, n
+    [, aux]}}, normalised to the port's types: int64 keypoint indices,
+    a float32 (3, 3) F, and a Python int n."""
+    out = {}
+    for (i, j), m in matches.items():
+        idx1 = np.asarray(m["idx1"], np.int64)
+        idx2 = np.asarray(m["idx2"], np.int64)
+        if idx1.shape != idx2.shape or idx1.ndim != 1:
+            raise ValueError(f"pair {(i, j)}: idx1 and idx2 must be 1-D and equally long")
+        entry = dict(idx1=idx1, idx2=idx2, F=np.asarray(m["F"], np.float32).reshape(3, 3),
+                     n=int(m.get("n", len(idx1))))
+        if m.get("aux"):
+            entry["aux"] = True
+        out[(int(i), int(j))] = entry
+    return out

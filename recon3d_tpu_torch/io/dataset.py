@@ -1,7 +1,7 @@
 """Image-set loading with undistort-at-load semantics.
 
 PyTorch port of recon3d_tpu/io/dataset.py (`ImageSet`, `list_images`,
-`load_image_set`): a directory of images sorted by name is read on the host
+`load_image_set`, `image_set_from_arrays`): a directory of images sorted by name is read on the host
 (PIL), resized so the long side <= max_size, padded to one canvas, and
 undistorted on the device through ops/image.undistort_image (K1 on CUDA,
 all colour planes of the set in one launch).
@@ -154,4 +154,19 @@ def load_image_set(
         names=files,
         sizes=sizes,
         scale=first_scale,
+    )
+
+
+def image_set_from_arrays(
+    images: np.ndarray, camera: Camera, names: Optional[List[str]] = None
+) -> ImageSet:
+    """Wrap pre-loaded (V, H, W, 3) float arrays (synthetic scenes, tests)."""
+    images = np.asarray(images, np.float32)
+    V, H, W = images.shape[:3]
+    return ImageSet(
+        gray=rgb_to_gray_np(images),
+        color=images,
+        camera=camera,
+        names=names or [f"synthetic_{i:04d}" for i in range(V)],
+        sizes=np.tile([H, W], (V, 1)).astype(np.int32),
     )

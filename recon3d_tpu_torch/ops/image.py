@@ -1,5 +1,5 @@
-"""Image-space ops of the dense path: gray, resize, warping, undistortion,
-box filter.
+"""Image-space ops: gray, resize, warping, undistortion, box filter (the
+dense path), and blur, decimation and gradients (the SIFT front end).
 
 PyTorch port of recon3d_tpu/ops/image.py, each function on its JAX CPU
 branch. The TPU-only branches (the MXU tent matmul at :216-224 and the
@@ -14,8 +14,10 @@ dimensions of (..., H, W): a leading batch takes the place of vmap.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from recon3d_tpu_torch.io.hostimg import _resize_weights
@@ -199,3 +201,71 @@ def box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
     s = ii[..., y1, x1] - ii[..., y0, x1] - ii[..., y1, x0] + ii[..., y0, x0]
     cnt = ((y1 - y0) * (x1 - x0)).to(img.dtype)
     return s / cnt
+
+
+# ---------------------------------------------------------------------------
+# Blur, decimation and gradients of the SIFT front end
+# (recon3d_tpu/ops/image.py:29-95). Every function acts on the last two
+# dimensions of (..., H, W); leading dimensions are a batch.
+
+
+def gaussian_kernel1d(sigma: float, radius: int | None = None) -> np.ndarray:
+    """Host-side 1-D Gaussian kernel of odd length 2*radius+1, float32,
+    computed in float64 and normalised there."""
+    if radius is None:
+        radius = max(1, int(math.ceil(3.0 * sigma)))
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def _as_kernel(k, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(k, np.float32)).to(like.device, like.dtype)
+
+
+def _conv_sep_1d(img: torch.Tensor, k, axis: int) -> torch.Tensor:
+    """Cross-correlation of (..., H, W) with the 1-D kernel `k` along
+    `axis` (0: rows / H, 1: columns / W): the edge is replicated by the
+    kernel's radius, then the convolution is VALID."""
+    k = _as_kernel(k, img)
+    r = k.shape[0] // 2
+    x = img.reshape((-1, 1) + img.shape[-2:])
+    if axis == 0:
+        x = torch.nn.functional.pad(x, (0, 0, r, r), mode="replicate")
+        out = torch.nn.functional.conv2d(x, k.reshape(1, 1, -1, 1))
+    else:
+        x = torch.nn.functional.pad(x, (r, r, 0, 0), mode="replicate")
+        out = torch.nn.functional.conv2d(x, k.reshape(1, 1, 1, -1))
+    return out.reshape(img.shape)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) -> torch.Tensor:
+    """Separable Gaussian blur of (..., H, W): rows, then columns."""
+    if sigma <= 0:
+        return img
+    k = gaussian_kernel1d(sigma, radius)
+    return _conv_sep_1d(_conv_sep_1d(img, k, 0), k, 1)
+
+
+def downsample2(img: torch.Tensor) -> torch.Tensor:
+    """Decimate (..., H, W) by 2 (every other pixel): the pyramid's octave step."""
+    return img[..., ::2, ::2]
+
+
+def sobel(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sobel gradients (gx, gy) of (..., H, W), the convention of cv.Sobel
+    with ksize=3 (kernels applied as cross-correlations)."""
+    kd = [-1.0, 0.0, 1.0]
+    ks = [1.0, 2.0, 1.0]
+    gx = _conv_sep_1d(_conv_sep_1d(img, ks, 0), kd, 1)
+    gy = _conv_sep_1d(_conv_sep_1d(img, kd, 0), ks, 1)
+    return gx, gy
+
+
+def central_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Central-difference gradients (gx, gy) of (..., H, W), edge-replicated."""
+    x = img.reshape((-1, 1) + img.shape[-2:])
+    p = torch.nn.functional.pad(x, (1, 1, 1, 1), mode="replicate")
+    gx = 0.5 * (p[..., 1:-1, 2:] - p[..., 1:-1, :-2])
+    gy = 0.5 * (p[..., 2:, 1:-1] - p[..., :-2, 1:-1])
+    return gx.reshape(img.shape), gy.reshape(img.shape)

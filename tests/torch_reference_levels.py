@@ -14,6 +14,15 @@ state. Runs on the CPU in a few minutes:
 3. patchmatch_depth on tests/test_torch_patchmatch.py's scene: the share of
    pixels within each relative-depth bound of the JAX run, for the port
    given the JAX draws and for the JAX rerun on images scaled by 1 + 2^-22.
+4. The SfM front end (load, extract_features, match_image_pairs of the JAX
+   SfMPipeline at its default configuration) on the north-star scene's 50
+   PNGs: the ground-truth gate of chip_smoke.py's sfm_front phase
+   (tests/torch_scene.match_graph_levels). About a quarter of an hour.
+5. SIFT on tests/test_torch_sift.py's image: the JAX extractor's agreement
+   with itself on the image scaled by 1 + 2^-22, the level that test holds
+   the port to.
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_levels.py 4 5   # parts 4 and 5 only
 """
 
 from __future__ import annotations
@@ -78,15 +87,62 @@ def patchmatch_agreement():
               f"JAX on perturbed images {(np.abs(jd2 - jd) / jd < thr).mean():.4f}")
 
 
+def sfm_front_levels():
+    import json
+    import tempfile
+    import time
+
+    from PIL import Image
+
+    from recon3d_tpu.sfm.pipeline import SfMPipeline as JaxPipeline
+    from tests.torch_scene import match_graph_levels
+
+    scene = render_views(n_views=50, image_size=(480, 640), arc_step=0.035,
+                         arc_offset=0.035 * 49 / 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, img in enumerate(scene["images"]):
+            Image.fromarray((img * 255).astype(np.uint8)).save(f"{tmp}/view_{i:03d}.png")
+        pipe = JaxPipeline()
+        pipe.load_images(tmp)
+    t0 = time.time()
+    pipe.extract_features()
+    t1 = time.time()
+    pipe.match_image_pairs()
+    t2 = time.time()
+    levels = match_graph_levels(pipe.matches, pipe.kp_xy, scene,
+                                len(pipe._components(50)))
+    counts = pipe.stats["features_per_image"]
+    print("4. SfM front end of the JAX package on the north-star scene (CPU: "
+          f"extract {t1 - t0:.0f} s, match {t2 - t1:.0f} s host time)")
+    print(f"  features per image: mean {np.mean(counts):.1f}, min {min(counts)}, "
+          f"max {max(counts)}; capacity {pipe.kp_xy[0].shape[0]}")
+    print("  " + json.dumps(levels))
+
+
+def sift_self_agreement():
+    from tests.test_torch_sift import sift_agreement_levels
+
+    print("5. SIFT on the test image: JAX against JAX on the image scaled by 1 + 2^-22")
+    print("  " + str(sift_agreement_levels()))
+
+
 def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
-    gate_levels("1. CLI test scene, 6 views of 128x160 at the CLI's settings",
-                render_views(n_views=6, image_size=(128, 160), arc_step=0.15), range(4), 300)
-    gate_levels("2. north-star scene, 50 views of 480x640 at the CLI's settings",
-                render_views(n_views=50, image_size=(480, 640), arc_step=0.035,
-                             arc_offset=0.035 * 49 / 2), range(2), 100)
-    patchmatch_agreement()
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5"}
+    if "4" in parts:
+        sfm_front_levels()
+    if "5" in parts:
+        sift_self_agreement()
+    if "1" in parts:
+        gate_levels("1. CLI test scene, 6 views of 128x160 at the CLI's settings",
+                    render_views(n_views=6, image_size=(128, 160), arc_step=0.15), range(4), 300)
+    if "2" in parts:
+        gate_levels("2. north-star scene, 50 views of 480x640 at the CLI's settings",
+                    render_views(n_views=50, image_size=(480, 640), arc_step=0.035,
+                                 arc_offset=0.035 * 49 / 2), range(2), 100)
+    if "3" in parts:
+        patchmatch_agreement()
 
 
 if __name__ == "__main__":

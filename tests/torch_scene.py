@@ -43,3 +43,51 @@ def surface_gate(points: np.ndarray) -> Tuple[float, float]:
         on = (np.abs(lu) <= p.half_u + 0.1) & (np.abs(lv) <= p.half_v + 0.1)
         dists = np.where(on, np.minimum(dists, d_plane), dists)
     return float(np.median(dists)), float((dists < 0.15).mean())
+
+
+def true_fundamental(K, R1, t1, R2, t2) -> np.ndarray:
+    """F with x2h^T F x1h = 0 for pixels of two views of one world point,
+    from the views' world-to-camera poses (x_cam = R x_world + t)."""
+    K = np.asarray(K, np.float64)
+    R = np.asarray(R2, np.float64) @ np.asarray(R1, np.float64).T
+    t = np.asarray(t2, np.float64) - R @ np.asarray(t1, np.float64)
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    Kinv = np.linalg.inv(K)
+    return Kinv.T @ tx @ R @ Kinv
+
+
+def sampson_np(F, x1, x2) -> np.ndarray:
+    """Sampson distance (pixels) of (N, 2) correspondences under F."""
+    a = np.concatenate([x1, np.ones((len(x1), 1))], axis=1)
+    b = np.concatenate([x2, np.ones((len(x2), 1))], axis=1)
+    Fx = a @ F.T
+    Ftx = b @ F
+    num = np.sum(b * Fx, axis=1) ** 2
+    den = Fx[:, 0] ** 2 + Fx[:, 1] ** 2 + Ftx[:, 0] ** 2 + Ftx[:, 1] ** 2
+    return np.sqrt(num / np.maximum(den, 1e-12))
+
+
+def match_graph_levels(matches, kp_xy, scene, n_components: int,
+                       threshold_px: float = 2.0) -> dict:
+    """Where a verified match graph (SfMPipeline.matches and .kp_xy after
+    match_image_pairs) stands against the scene's ground truth: the Sampson
+    distance of every inlier match of every kept non-aux pair under the
+    true F of its two views."""
+    n = len(scene["Rs"])
+    dists = []
+    for (i, j), m in matches.items():
+        if m.get("aux"):
+            continue
+        F = true_fundamental(scene["K"], scene["Rs"][i], scene["ts"][i],
+                             scene["Rs"][j], scene["ts"][j])
+        dists.append(sampson_np(F, kp_xy[i][m["idx1"]], kp_xy[j][m["idx2"]]))
+    d = np.concatenate(dists) if dists else np.zeros(0)
+    adjacent = [(i, i + 1) in matches for i in range(n - 1)]
+    return {
+        "pairs_kept": len(matches),
+        "adjacent_kept": int(sum(adjacent)), "adjacent_total": n - 1,
+        "inlier_matches": int(len(d)),
+        "median_sampson_px": float(np.median(d)) if len(d) else float("nan"),
+        "share_under_threshold": float((d < threshold_px).mean()) if len(d) else 0.0,
+        "components": int(n_components),
+    }
