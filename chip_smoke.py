@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port (recon3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # about 3-5 minutes on an H100
+    python3 chip_smoke.py    # about 4 minutes on an H100
 
 Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
@@ -21,7 +21,15 @@ Phases, each of which passes or raises:
      profiler; then a small 12-view run at match_window=2 that enters the
      long-span rematch. This phase launches no kernel of the port's: the
      JAX package computes it outside any Pallas kernel, so it is plain
-     PyTorch.
+     PyTorch;
+  7. sfm_sparse: the whole sparse reconstruction, SfMPipeline.reconstruct()
+     (front end, initial pair by the 5-point essential RANSAC, PnP
+     registration waves, triangulation, motion refinement and Schur bundle
+     adjustment) on the same PNGs with the scene's K as calibration, run
+     cold and warm, gated on cameras registered, reprojection error and the
+     similarity-aligned pose errors against the scene's true poses
+     (SFM_SPARSE_GATE), then its back-end stages once more under the
+     profiler. Plain PyTorch as well.
 
 Prints the kernel table as one JSON line, then the card line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero, printing no
@@ -56,7 +64,8 @@ from recon3d_tpu_torch.io.colmap import save_colmap_text  # noqa: E402
 from recon3d_tpu_torch.io.ply import load_ply  # noqa: E402
 from recon3d_tpu_torch.kernels import warp  # noqa: E402
 from tests.render import render_views  # noqa: E402
-from tests.torch_scene import match_graph_levels, sparse_from_depth, surface_gate  # noqa: E402
+from tests.torch_scene import (  # noqa: E402
+    match_graph_levels, pose_errors, sparse_from_depth, surface_gate)
 
 # H100 SXM published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -80,6 +89,17 @@ NORTH_STAR_GATE = (0.30, 0.33)
 # reference on the same PNGs (tests/torch_reference_levels.py, part 4, on
 # the CPU) passes it.
 SFM_FRONT_GATE = {"median_sampson_px": 1.0, "share_under_threshold": 0.95}
+# Gate of the sfm_sparse phase: at least 47 of the 50 cameras and a mean
+# reprojection error below 1.5 px (the quality gate of
+# scripts/northstar_run.py), and similarity-aligned pose errors against the
+# scene's true poses: mean rotation error and mean centre error (scene
+# units; the cameras stand about 5 from the scene). The JAX reference on
+# the same PNGs on the CPU (tests/torch_reference_levels.py, part 6)
+# registers 50 of 50 at 0.5527 px with a mean rotation error of 0.1643 deg
+# and a mean centre error of 0.0078: it passes the first two limits as they
+# were set, and the pose limits stand at three times its errors.
+SFM_SPARSE_GATE = {"min_cameras": 47, "mean_reproj_px": 1.5,
+                   "mean_rot_err_deg": 0.5, "mean_center_err": 0.025}
 # The small long-span runs at match_window=2: 12 views of 240x320 on an arc
 # wide enough that probe pairs of span >= 4 fail at load resolution and go
 # to the 2x rematch (on the CPU none of them reaches min_matches there
@@ -283,6 +303,8 @@ def render_north_star(work: Path) -> dict:
     names = [f"view_{i:03d}.png" for i in range(N_VIEWS)]
     for name, img in zip(names, scene["images"]):
         Image.fromarray((img * 255).astype(np.uint8)).save(img_dir / name)
+    np.savez(work / "calibration.npz", mtx=np.asarray(scene["K"], np.float64),
+             dist=np.zeros(5))
     poses = {i: (scene["Rs"][i], scene["ts"][i]) for i in range(N_VIEWS)}
     save_colmap_text(str(work / "model"), scene["K"], IMAGE_SIZE, poses,
                      sparse_from_depth(scene, per_view=100), None, names=names)
@@ -341,7 +363,28 @@ def profile_run(fn, wall: float, what: str, highlight: str = "", top: int = 5) -
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return summarize_profiles([prof], wall, what, highlight, top)
+
+
+class _Op:
+    """Device time and count of one operation, summed over profiles."""
+
+    def __init__(self, key):
+        self.key, self.self_device_time_total, self.count = key, 0.0, 0
+
+
+def summarize_profiles(profs, wall: float, what: str, highlight: str = "",
+                       top: int = 5) -> dict:
+    """The device-side summary of one or more torch.profiler runs against
+    `wall` seconds of unprofiled time (see profile_run)."""
+    ops = {}
+    for prof in profs:
+        for e in prof.key_averages():
+            if e.device_type.name == "CUDA":
+                op = ops.setdefault(e.key, _Op(e.key))
+                op.self_device_time_total += e.self_device_time_total
+                op.count += e.count
+    events = list(ops.values())
     if not events:
         print(f"[profile] {what}: the profiler recorded no device time: not measured")
         return {}
@@ -458,6 +501,151 @@ def sfm_front(work: Path, scene: dict, card: str) -> dict:
     return report
 
 
+class _StageClock:
+    """Wraps methods of one SfMPipeline so that each call is timed to a
+    device sync and records the peak of allocated device memory, summed
+    and maxed by stage name."""
+
+    def __init__(self, pipe, stages):
+        self.seconds = {s: 0.0 for s in stages}
+        self.peak_bytes = {s: 0 for s in stages}
+        self.calls = {s: 0 for s in stages}
+        for name in stages:
+            setattr(pipe, name, self._wrap(name, getattr(pipe, name)))
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            self.peak_bytes[name] = max(self.peak_bytes[name], torch.cuda.max_memory_allocated())
+            self.calls[name] += 1
+            return out
+        return timed
+
+
+SPARSE_STAGES = ("find_best_initial_pair", "_register_wave", "_triangulate_images",
+                 "bundle_adjustment_light", "bundle_adjustment_full")
+
+
+def sparse_pipeline(work: Path):
+    from recon3d_tpu_torch.config import ReconstructionConfig
+    from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+    return SfMPipeline(calibration_path=str(work / "calibration.npz"),
+                       config=ReconstructionConfig(), device="cuda")
+
+
+def run_sparse(work: Path) -> dict:
+    """SfMPipeline.reconstruct() on the north-star PNGs at the default
+    configuration on the card. The back end's stages are timed one by one
+    as well, with a device sync around each call (the pipeline's own stage
+    times in `stats` include the few milliseconds those syncs cost)."""
+    pipe = sparse_pipeline(work)
+    clock = _StageClock(pipe, SPARSE_STAGES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    points, colors, poses = pipe.reconstruct(str(work / "images"))
+    torch.cuda.synchronize()
+    return {"pipe": pipe, "clock": clock, "wall_s": time.perf_counter() - t0,
+            "points": points, "colors": colors, "poses": poses}
+
+
+def sfm_sparse(work: Path, scene: dict, card: str) -> dict:
+    """The sfm_sparse phase: cold run, warm run (gated, its times kept),
+    then a third run with the back end's stages under the profiler."""
+    warp.counts.reset()
+    cold = run_sparse(work)
+    cold_stats = cold["pipe"].stats
+    del cold["pipe"]
+    warm = run_sparse(work)
+    pipe, clock, st = warm["pipe"], warm["clock"], warm["pipe"].stats
+    points, colors, poses = warm["points"], warm["colors"], warm["poses"]
+    errs = pose_errors(pipe.poses, scene)
+    times = ("load_time", "extract_time", "match_time", "init_time", "incremental_time",
+             "final_ba_time", "total_time")
+    ba = st["ba_full_detail_s"]
+    report = {
+        "phase": "sfm_sparse", "card": card, "views": N_VIEWS, "image_size": list(IMAGE_SIZE),
+        "num_cameras": st["num_cameras"], "num_points": st["num_points"],
+        "mean_reproj_px": st["mean_reproj_px"],
+        "unregistered": sorted(set(range(N_VIEWS)) - set(pipe.registered)),
+        "pose_errors": errs,
+        "seconds": {k: st[k] for k in times},
+        "seconds_cold": {k: cold_stats[k] for k in times},
+        "wall_s": warm["wall_s"], "wall_cold_s": cold["wall_s"],
+        "incremental_breakdown_s": st["incremental_breakdown_s"],
+        "register_detail_s": st["register_detail_s"],
+        "ba_full_detail_s": ba,
+        "waves": st["register_detail_s"]["waves"],
+        "lm_iterations": ba["iterations"],
+        "stage_seconds_synced": clock.seconds, "stage_calls": clock.calls,
+        "stage_peak_device_bytes": clock.peak_bytes,
+        "cold": {"num_cameras": cold_stats["num_cameras"], "num_points": cold_stats["num_points"],
+                 "mean_reproj_px": cold_stats["mean_reproj_px"],
+                 "waves": cold_stats["register_detail_s"]["waves"]},
+        "port_kernel_launches": warp.counts.kernel + warp.counts.plain,
+    }
+    print(json.dumps(report), flush=True)
+
+    failed = []
+    if not (points.ndim == 2 and points.shape[1] == 3 and points.dtype == np.float32
+            and np.isfinite(points).all() and colors.shape == points.shape
+            and colors.dtype == np.uint8):
+        failed.append("points or colours malformed or not finite")
+    if sorted(poses) != sorted(pipe.registered) or not all(
+            bool(torch.isfinite(p.R).all() and torch.isfinite(p.t).all()) for p in poses.values()):
+        failed.append("poses malformed or not finite")
+    if st["num_cameras"] < SFM_SPARSE_GATE["min_cameras"]:
+        failed.append(f"{st['num_cameras']} cameras registered")
+    if not st["mean_reproj_px"] < SFM_SPARSE_GATE["mean_reproj_px"]:
+        failed.append("mean reprojection error")
+    for key in ("mean_rot_err_deg", "mean_center_err"):
+        if not errs[key] < SFM_SPARSE_GATE[key]:
+            failed.append(key)
+    if failed:
+        raise AssertionError("sfm_sparse fails its gate: " + "; ".join(failed))
+    del warm, pipe
+
+    # The profiled rerun: every call of a back-end stage under its own
+    # profile, summed by stage name, against the warm run's synced stage
+    # times (the front end of this run is not profiled: sfm_front did).
+    # Device activity only: with the host's operators recorded as well,
+    # the 200,000 launches of the back end take minutes to profile.
+    from torch.profiler import ProfilerActivity, profile
+
+    third = sparse_pipeline(work)
+    profs = {}
+
+    def under(name, fn):
+        def run(*args, **kwargs):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            profs.setdefault(name, []).append(prof)
+            return out
+        return run
+
+    for name in SPARSE_STAGES:
+        setattr(third, name, under(name, getattr(third, name)))
+    third.reconstruct(str(work / "images"))
+    report["profile"] = {
+        name: summarize_profiles(profs.get(name, []), clock.seconds[name], f"sfm_sparse {name}")
+        for name in SPARSE_STAGES}
+    measured = [v for v in report["profile"].values() if v]
+    if measured:
+        busy = sum(v["device_busy_s"] for v in measured)
+        wall = sum(clock.seconds.values())
+        print(f"[profile] sfm_sparse, init + waves + BA: device busy {busy:.4f} s in "
+              f"{sum(v['kernels'] for v in measured)} kernels and copies, "
+              f"{100 * busy / wall:.1f}% of the warm run's {wall:.3f} s in those stages "
+              f"(idle {100 * (1 - busy / wall):.1f}%)", flush=True)
+    return report
+
+
 def long_span_run() -> list:
     """Small scenes at match_window=2: failed probe pairs of span >= 4 go
     through SfMPipeline._rematch_long_span (which returns at once above
@@ -517,6 +705,7 @@ def main() -> int:
         scene = render_north_star(Path(tmp))
         result = main_path(Path(tmp), card)
         sfm_front(Path(tmp), scene, card)
+        sfm_sparse(Path(tmp), scene, card)
 
     head = shapes[0]
     kernels = [{

@@ -15,6 +15,7 @@ import math
 import torch
 
 from recon3d_tpu_torch.ops.linalg import einsum_hp, homogeneous, matmul_hp, smallest_eigvec
+from recon3d_tpu_torch.ops.ransac import select_best
 from recon3d_tpu_torch.ops.select import argmax_first
 from recon3d_tpu_torch.ops.triangulate import triangulate_dlt
 
@@ -215,15 +216,16 @@ def recover_pose(
     mask: torch.Tensor,
 ):
     """Select the (R, t) candidate with the most points in front of both
-    cameras. x1, x2: (N, 2) pixels; mask: (N,) valid correspondences.
-    Returns (R (3, 3), t (3,), cheirality_mask (N,))."""
-    Rs, ts = decompose_essential(E)  # (4, 3, 3), (4, 3)
+    cameras. E: (..., 3, 3); x1, x2: (..., N, 2) pixels; mask: (..., N)
+    valid correspondences; K: (3, 3).
+    Returns (R (..., 3, 3), t (..., 3), cheirality_mask (..., N))."""
+    Rs, ts = decompose_essential(E)  # (..., 4, 3, 3), (..., 4, 3)
     P1 = matmul_hp(K, torch.cat([torch.eye(3, dtype=K.dtype, device=K.device),
                                  torch.zeros((3, 1), dtype=K.dtype, device=K.device)], dim=1))
-    P2s = einsum_hp("ij,cjk->cik", K, torch.cat([Rs, ts[..., None]], dim=-1))
-    X = triangulate_dlt(P1.expand_as(P2s), P2s, x1, x2)      # (4, N, 3)
-    z1 = X[..., 2]
-    z2 = (einsum_hp("cij,cnj->cni", Rs, X) + ts[:, None, :])[..., 2]
-    fronts = (z1 > 1e-6) & (z2 > 1e-6) & (mask > 0)
+    P2s = einsum_hp("ij,...cjk->...cik", K, torch.cat([Rs, ts[..., None]], dim=-1))
+    X = triangulate_dlt(P1.expand_as(P2s), P2s, x1[..., None, :, :], x2[..., None, :, :])
+    z1 = X[..., 2]                                            # (..., 4, N)
+    z2 = (einsum_hp("...cij,...cnj->...cni", Rs, X) + ts[..., None, :])[..., 2]
+    fronts = (z1 > 1e-6) & (z2 > 1e-6) & (mask[..., None, :] > 0)
     best = argmax_first(fronts.sum(dim=-1), -1)
-    return Rs[best], ts[best], fronts[best]
+    return select_best(Rs, best, 2), select_best(ts, best, 1), select_best(fronts, best, 1)

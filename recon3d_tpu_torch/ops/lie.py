@@ -44,6 +44,27 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return eye + A[..., None, None] * W + B[..., None, None] * (W @ W)
 
 
+def so3_exp_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """d so3_exp(w) / d w_k as (..., 3, 3, 3), the derivative index first
+    of the three: out[..., k, :, :] = dR/dw_k. Written out from
+    R = I + A W + B W^2 with the branches of `_coefficients`, so that it is
+    the derivative autodiff takes of so3_exp."""
+    theta2 = (w * w).sum(-1)
+    theta, small, A, B = _coefficients(theta2)
+    sin, cos = torch.sin(theta), torch.cos(theta)
+    # dA/d(theta2) and dB/d(theta2), with d theta / d theta2 = 1 / (2 theta)
+    dA = torch.where(small, -1.0 / 6.0, (theta * cos - sin) / (theta * theta) / (2.0 * theta))
+    den = theta2 + _EPS
+    dB = torch.where(small, -1.0 / 24.0, (sin / (2.0 * theta) * den - (1.0 - cos)) / (den * den))
+    W = hat(w)
+    W2 = W @ W
+    G = hat(torch.eye(3, dtype=w.dtype, device=w.device))            # (3, 3, 3) generators
+    radial = dA[..., None, None] * W + dB[..., None, None] * W2      # (..., 3, 3)
+    GW = G @ W[..., None, :, :] + W[..., None, :, :] @ G             # (..., 3, 3, 3)
+    return (2.0 * w[..., None, None] * radial[..., None, :, :]
+            + A[..., None, None, None] * G + B[..., None, None, None] * GW)
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> axis-angle (..., 3): the trace
     formulation, clamped; accurate away from theta = pi."""

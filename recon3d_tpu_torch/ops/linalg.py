@@ -4,7 +4,15 @@ PyTorch port of recon3d_tpu/ops/linalg.py on its CPU branch: null vectors
 come from torch.linalg.eigh of the normal matrix, rotations from
 torch.linalg.svd. The Cholesky inverse iteration (`_smallest_eigvec_fast`,
 behind the `fast` flag) and the polar branch of `nearest_rotation` exist in
-the JAX package for the TPU only and are not ported.
+the JAX package for the TPU only and are not ported, so `smallest_eigvec`
+takes no `fast` flag: it is the exact eigh everywhere.
+
+jnp.linalg returns NaN or inf where a matrix is singular or not finite, and
+the geometry code relies on that (a bad hypothesis carries its NaN into a
+finiteness gate and loses the vote). LAPACK under torch raises instead, so
+the decompositions here see a finite stand-in for a non-finite matrix and
+write NaN over its result (`_finite_in`/`_nan_out`), and the solves are the
+unchecked `solve_ex`/`inv_ex`.
 
 Every product here is a plain float32 product: TF32 is switched off for
 the whole port (runtime/device.py), which is what Precision.HIGHEST asks
@@ -34,19 +42,114 @@ def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def _cholesky_unrolled(A: torch.Tensor) -> list:
+    """Batched Cholesky of small (..., n, n) SPD matrices, unrolled into
+    its n^3/6 scalar recurrences (elementwise work over the batch). Returns
+    the lower factor as a list of lists of (...) tensors; a pivot that is
+    not positive is clamped to 1e-30 instead of stopping the batch."""
+    n = A.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = A[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                L[i][j] = torch.sqrt(s.clamp_min(1e-30))
+            else:
+                L[i][j] = s / L[j][j]
+    return L
+
+
+def _chol_solve_unrolled(L: list, b: torch.Tensor) -> torch.Tensor:
+    """Solve L L^T x = b with the unrolled factor; b: (..., n)."""
+    n = len(L)
+    y = [None] * n
+    for i in range(n):
+        s = b[..., i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x, dim=-1)
+
+
+def _finite_in(M: torch.Tensor):
+    """(M with every non-finite matrix replaced by the identity, bad (...)):
+    what a LAPACK or cuSOLVER decomposition may be given."""
+    bad = ~torch.isfinite(M).all(dim=-1).all(dim=-1)
+    eye = torch.eye(M.shape[-2], M.shape[-1], dtype=M.dtype, device=M.device)
+    return torch.where(bad[..., None, None], eye, M), bad
+
+
+def _nan_out(x: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
+    """NaN over the results of the matrices `_finite_in` replaced."""
+    bad = bad.reshape(bad.shape + (1,) * (x.dim() - bad.dim()))
+    return torch.where(bad, float("nan"), x)
+
+
+def eigh_batched(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torch.linalg.eigh of symmetric (..., n, n) matrices in slices that
+    cuSOLVER's batched solver takes; NaN for a non-finite matrix. Returns
+    (w (..., n) ascending, V (..., n, n) with eigenvectors as columns)."""
+    n = A.shape[-1]
+    flat, bad = _finite_in(A.reshape(-1, n, n))
+    parts = [torch.linalg.eigh(part) for part in flat.split(_EIGH_MAX_BATCH)]
+    w = _nan_out(torch.cat([p[0] for p in parts]), bad)
+    V = _nan_out(torch.cat([p[1] for p in parts]), bad)
+    return w.reshape(A.shape[:-1]), V.reshape(A.shape)
+
+
 def smallest_eigvec(A: torch.Tensor) -> torch.Tensor:
     """Eigenvector of the smallest eigenvalue of a symmetric PSD (..., n, n)
     matrix: the null vector of the DLT and 8-point solvers (A^T A instead
     of an SVD of the tall matrix). Defined up to sign."""
-    n = A.shape[-1]
-    flat = A.reshape(-1, n, n)
-    vecs = torch.cat([torch.linalg.eigh(part)[1][:, :, 0]
-                      for part in flat.split(_EIGH_MAX_BATCH)])
-    return vecs.reshape(A.shape[:-1])
+    return eigh_batched(A)[1][..., :, 0]
 
 
 def _unit(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return v / torch.linalg.norm(v, dim=-1, keepdim=True).clamp_min(eps)
+
+
+def null_space_rows(Q: torch.Tensor) -> torch.Tensor:
+    """Orthonormal basis (..., n - m, n), as rows, of the null space of
+    full-rank (..., m, n) matrices with m < n: the last n - m columns of
+    the orthogonal factor of a complete Householder QR of Q^T, with
+    LAPACK's reflectors (beta = -sign(x_0) |x|), unrolled into elementwise
+    work over the batch (a batched torch.linalg.qr on CUDA computes that
+    factor matrix by matrix).
+
+    The 5-point solver depends on which basis of the null space it is
+    given, beyond its accuracy: it fixes the coefficient of the last basis
+    vector to 1. With this basis it recovers as many essential matrices as
+    the JAX function does with its QR; with the eigenvectors of the
+    projector onto the null space (the same space, turned at random) it
+    loses about a tenth of them."""
+    m, n = Q.shape[-2:]
+    A = Q.transpose(-1, -2).clone()                       # (..., n, m)
+    reflectors = []
+    for k in range(m):
+        x = A[..., k:, k]
+        norm = torch.linalg.norm(x, dim=-1)
+        beta = torch.where(x[..., 0] < 0, norm, -norm)
+        v = x.clone()
+        v[..., 0] -= beta
+        v = _unit(v)
+        reflectors.append(v)
+        sub = A[..., k:, k:]
+        A[..., k:, k:] = sub - 2.0 * v[..., :, None] * (v[..., None, :] @ sub)
+    cols = torch.eye(n, dtype=Q.dtype, device=Q.device)[:, m:].expand(Q.shape[:-2] + (n, n - m))
+    cols = cols.clone()
+    for k in reversed(range(m)):
+        v = reflectors[k]
+        sub = cols[..., k:, :]
+        cols[..., k:, :] = sub - 2.0 * v[..., :, None] * (v[..., None, :] @ sub)
+    return cols.transpose(-1, -2)
 
 
 def eigh3x3(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,11 +210,12 @@ def eigh3x3(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def nearest_rotation(M: torch.Tensor) -> torch.Tensor:
     """Project (..., 3, 3) onto SO(3) (det +1) through the SVD:
-    U diag(1, 1, det(U V^T)) V^T."""
+    U diag(1, 1, det(U V^T)) V^T; NaN for a non-finite M."""
+    M, bad = _finite_in(M)
     U, _, Vt = torch.linalg.svd(M)
     det = torch.linalg.det(U @ Vt)
     D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
-    return (U * D[..., None, :]) @ Vt
+    return _nan_out((U * D[..., None, :]) @ Vt, bad)
 
 
 def solve_psd(A: torch.Tensor, b: torch.Tensor, damping: float = 0.0) -> torch.Tensor:

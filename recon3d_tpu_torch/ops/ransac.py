@@ -80,7 +80,16 @@ def sample_masks(
     return masks * (valid[..., None, :] > 0)
 
 
-def _select(x: torch.Tensor, best: torch.Tensor, tail: int) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The sampled rows of padded data: x (..., N, D)[idx (..., H, k)] ->
+    (..., H, k, D)."""
+    lead = idx.shape[:-2]
+    d = x.shape[-1]
+    flat = idx.reshape(lead + (-1,))[..., None].expand(lead + (idx.shape[-2] * idx.shape[-1], d))
+    return torch.gather(x, -2, flat).reshape(idx.shape + (d,))
+
+
+def select_best(x: torch.Tensor, best: torch.Tensor, tail: int) -> torch.Tensor:
     """x (..., H, *tail dims)[best (...)] -> (..., *tail dims)."""
     idx = best.reshape(best.shape + (1,) * (tail + 1))
     idx = idx.expand(best.shape + (1,) + x.shape[x.dim() - tail:])
@@ -130,10 +139,10 @@ def ransac(
     best = argmax_first(counts.to(torch.float32) - 0.5 * norm_score, -1)
 
     return RansacResult(
-        model=_select(models, best, models.dim() - valid.dim()),
-        inliers=_select(inl, best, 1),
-        num_inliers=_select(counts, best, 0),
-        best_score=_select(score, best, 0),
+        model=select_best(models, best, models.dim() - valid.dim()),
+        inliers=select_best(inl, best, 1),
+        num_inliers=select_best(counts, best, 0),
+        best_score=select_best(score, best, 0),
     )
 
 

@@ -95,24 +95,25 @@ def validate_triangulation(
     min_parallax_deg: float = 1.0,
     max_depth_factor: float = 200.0,
 ) -> torch.Tensor:
-    """Vectorized validity mask over triangulated points (N, 3):
+    """Vectorized validity mask over triangulated points X (..., N, 3),
+    with poses R (..., 3, 3), t (..., 3) and pixels x (..., N, 2):
       1. cheirality in both cameras (z > 0),
       2. depth < max_depth_factor * baseline,
       3. parallax >= min_parallax_deg,
       4. reprojection error <= max_reproj_px in both views."""
-    z1 = (einsum_hp("ij,nj->ni", R1, X) + t1)[..., 2]
-    z2 = (einsum_hp("ij,nj->ni", R2, X) + t2)[..., 2]
+    z1 = (einsum_hp("...ij,...nj->...ni", R1, X) + t1[..., None, :])[..., 2]
+    z2 = (einsum_hp("...ij,...nj->...ni", R2, X) + t2[..., None, :])[..., 2]
     cheirality = (z1 > 1e-6) & (z2 > 1e-6)
 
-    C1 = -R1.T @ t1
-    C2 = -R2.T @ t2
-    baseline = torch.linalg.norm(C2 - C1) + 1e-12
-    depth_ok = (z1 < max_depth_factor * baseline) & (z2 < max_depth_factor * baseline)
+    C1 = -einsum_hp("...ji,...j->...i", R1, t1)
+    C2 = -einsum_hp("...ji,...j->...i", R2, t2)
+    limit = max_depth_factor * (torch.linalg.norm(C2 - C1, dim=-1, keepdim=True) + 1e-12)
+    depth_ok = (z1 < limit) & (z2 < limit)
 
-    parallax_ok = triangulation_angles(C1, C2, X) >= min_parallax_deg
+    parallax_ok = triangulation_angles(C1[..., None, :], C2[..., None, :], X) >= min_parallax_deg
 
-    e1 = reprojection_errors(K, R1, t1, X, x1)
-    e2 = reprojection_errors(K, R2, t2, X, x2)
+    e1 = reprojection_errors(K, R1[..., None, :, :], t1[..., None, :], X, x1)
+    e2 = reprojection_errors(K, R2[..., None, :, :], t2[..., None, :], X, x2)
     reproj_ok = (e1 <= max_reproj_px) & (e2 <= max_reproj_px)
 
     return cheirality & depth_ok & parallax_ok & reproj_ok

@@ -1,0 +1,479 @@
+"""Sparse bundle adjustment: Schur-reduced Levenberg-Marquardt with CG.
+
+PyTorch port of the single-device part of recon3d_tpu/sfm/bundle.py:
+
+  - per-observation (2, 6)/(2, 3) Jacobian blocks, written out (the JAX
+    function takes them by forward-mode autodiff),
+  - point blocks eliminated analytically (batched closed-form 3x3
+    inverses) and preconditioned CG on the Schur-reduced camera system
+    ("Bundle Adjustment in the Large", reduced camera system),
+  - every J/J^T contraction is gathers + einsums + contiguous cumsum
+    segment reductions, whose order of summation is fixed on any device
+    (a scatter-add's is not),
+  - Huber robustification via IRLS weights,
+  - cameras parameterized as se(3) increments on the linearization point,
+  - gauge fixed by freezing camera 0 (and the scale by damping).
+
+Everything is fixed-shape: observations are padded to capacity with
+weights. The entry point is `bundle_adjust_log`, over the pipeline's
+append-only observation log; the list-based `bundle_adjust` and the
+observation-sharded loop over several devices are not ported (ROADMAP.md,
+section 1, items 6 and 12).
+
+The LM loop's condition lives on the device, so each LM iteration costs one
+host read (at most `max_iterations` accepted steps a call); the CG inside
+an iteration reads nothing back.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from recon3d_tpu_torch.config import BundleConfig
+from recon3d_tpu_torch.ops.lie import se3_exp
+from recon3d_tpu_torch.ops.linalg import einsum_hp, matmul_hp
+from recon3d_tpu_torch.ops.pnp import pinhole_jacobian, twist_jacobian
+from recon3d_tpu_torch.runtime.device import resolve_device
+
+
+class BAData(NamedTuple):
+    K: torch.Tensor        # (3, 3)
+    R0: torch.Tensor       # (C, 3, 3) linearization poses
+    t0: torch.Tensor       # (C, 3)
+    X0: torch.Tensor       # (P, 3) linearization points
+    obs_cam: torch.Tensor  # (O,) int64
+    obs_pt: torch.Tensor   # (O,) int64, sorted ascending over the real rows
+    obs_xy: torch.Tensor   # (O, 2)
+    obs_w: torch.Tensor    # (O,) 0/1 validity
+    # Segment-reduction indices: every J^T contraction is a cumsum and
+    # boundary differences over contiguous segments. Points are contiguous
+    # because the observation table is point-major; cameras get a sort
+    # permutation.
+    pt_start: torch.Tensor   # (P,) int64, [start, end) rows of point p
+    pt_end: torch.Tensor     # (P,) int64
+    cam_perm: torch.Tensor   # (O,) int64, permutation sorting rows by camera
+    cam_start: torch.Tensor  # (C,) int64
+    cam_end: torch.Tensor    # (C,) int64
+
+
+class BAParams(NamedTuple):
+    xi: torch.Tensor       # (C, 6) se3 increments
+    dX: torch.Tensor       # (P, 3) point increments
+
+
+def _apply_increment(xi, R0, t0):
+    dR, dt = se3_exp(xi)
+    R = matmul_hp(dR, R0)
+    t = einsum_hp("cij,cj->ci", dR, t0) + dt
+    return R, t
+
+
+def _residuals(params: BAParams, data: BAData, robust_w: torch.Tensor) -> torch.Tensor:
+    """Weighted residual vector (O*2,)."""
+    R, t = _apply_increment(params.xi, data.R0, data.t0)
+    X = data.X0 + params.dX
+    Xc = einsum_hp("oij,oj->oi", R[data.obs_cam], X[data.obs_pt]) + t[data.obs_cam]
+    z = Xc[:, 2:3]
+    z = torch.where(z.abs() < 1e-6, torch.where(z < 0, -1e-6, 1e-6), z)
+    uv = Xc[:, :2] / z
+    K = data.K
+    u = K[0, 0] * uv[:, 0] + K[0, 1] * uv[:, 1] + K[0, 2]
+    v = K[1, 1] * uv[:, 1] + K[1, 2]
+    r = torch.stack([u, v], dim=1) - data.obs_xy
+    w = (data.obs_w * robust_w)[:, None]
+    return (r * w).reshape(-1)
+
+
+def _robust_weights(params: BAParams, data: BAData, delta) -> torch.Tensor:
+    """IRLS Huber weights sqrt(w(||r||)) from the current residuals."""
+    r = _residuals(params, data, torch.ones_like(data.obs_w)).reshape(-1, 2)
+    n = torch.linalg.norm(r, dim=1)
+    w = torch.where(n <= delta, 1.0, delta / n.clamp_min(1e-12))
+    return torch.sqrt(w)
+
+
+def _reduce_contiguous(y: torch.Tensor, start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    """Segment sums of y (O, ...) whose segments occupy contiguous row
+    ranges [start_s, end_s): exclusive cumsum + two boundary gathers. Rows
+    outside every segment (zero-weight padding) contribute nothing as long
+    as their values are zero, which the w-multiplied Jacobians are.
+
+    The scan runs along the last axis of the transposed (D, O) table: a
+    CUDA cumsum along the first axis of a tall (O, D) tensor walks its O
+    rows one after another."""
+    flat = y.reshape(y.shape[0], -1).t().contiguous()                  # (D, O)
+    c = torch.cumsum(flat, dim=1)
+    c = torch.cat([torch.zeros_like(c[:, :1]), c], dim=1)
+    return (c[:, end] - c[:, start]).t().reshape((end.shape[0],) + y.shape[1:])
+
+
+def _reduce_pt(data: BAData, y: torch.Tensor) -> torch.Tensor:
+    """Sum per-observation rows into point rows (the table is point-major)."""
+    return _reduce_contiguous(y, data.pt_start, data.pt_end)
+
+
+def _reduce_cam(data: BAData, y: torch.Tensor) -> torch.Tensor:
+    """Sum per-observation rows into camera rows via the sort permutation."""
+    return _reduce_contiguous(y[data.cam_perm], data.cam_start, data.cam_end)
+
+
+def _per_obs_jacobians(data: BAData, robust_w: torch.Tensor):
+    """Per-observation residuals and Jacobian blocks at the linearization
+    point (xi = 0, dX = 0), which is where the LM loop always stands.
+
+    Returns (r (O, 2), Jc (O, 2, 6), Jp (O, 2, 3)): the explicit
+    Gauss-Newton blocks every J/J^T application contracts against, so the
+    CG loop needs only gathers, einsums and contiguous reductions."""
+    Rg = data.R0[data.obs_cam]
+    Xc = einsum_hp("oij,oj->oi", Rg, data.X0[data.obs_pt]) + data.t0[data.obs_cam]
+    px, Dp = pinhole_jacobian(data.K, Xc, 1e-6)
+    w = (data.obs_w * robust_w)[:, None]
+    r = (px - data.obs_xy) * w
+    Dp = Dp * w[..., None]
+    return r, matmul_hp(Dp, twist_jacobian(Xc)), matmul_hp(Dp, Rg)
+
+
+def _inv3x3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse (adjugate / det)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    Cc = d * h - e * g
+    det = a * A + b * B + c * Cc
+    det = torch.where(det.abs() < 1e-18, 1e-18, det)
+    adj = torch.stack([
+        torch.stack([A, -(b * i - c * h), b * f - c * e], dim=-1),
+        torch.stack([B, a * i - c * g, -(a * f - c * d)], dim=-1),
+        torch.stack([Cc, -(a * h - b * g), a * e - b * d], dim=-1),
+    ], dim=-2)
+    return adj / det[..., None, None]
+
+
+def _lm_step(
+    data: BAData,
+    damping,
+    delta,
+    cg_iters: int = 40,
+    motion_only: bool = False,
+):
+    """One LM iteration from the linearization point of `data` via the
+    Schur-reduced camera system: eliminate all point blocks analytically
+    (their damped 3x3 Hessians invert in closed form), run preconditioned
+    CG on the 6C-dim camera system, back-substitute the point step.
+    Returns (cand BAParams, cost0, cost1).
+
+    (The JAX function also takes the parameters to step from; its callers
+    always pass zeros, and the blocks here are written out at zero.)
+
+      - the Jacobian is materialized once per LM step as per-observation
+        (2, 6)/(2, 3) blocks; every Schur matvec is gathers + einsums +
+        contiguous segment reductions,
+      - the CG space drops from 6C+3P to 6C (P >> C in SfM) and its
+        conditioning improves enough that the same iteration budget
+        converges,
+      - motion_only is the same program with C^{-1} = 0 (points frozen)."""
+    C = data.R0.shape[0]
+    P = data.X0.shape[0]
+    dt, dev = data.X0.dtype, data.X0.device
+    zero = BAParams(xi=torch.zeros((C, 6), dtype=dt, device=dev),
+                    dX=torch.zeros((P, 3), dtype=dt, device=dev))
+    robust_w = _robust_weights(zero, data, delta)
+
+    fc6 = torch.ones((C, 6), dtype=dt, device=dev)
+    fc6[0] = 0.0  # gauge: camera 0 fixed
+
+    r0_obs, Jc, Jp = _per_obs_jacobians(data, robust_w)
+    cost0 = 0.5 * (r0_obs * r0_obs).sum()
+
+    # gradient halves
+    g_c = _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, r0_obs)) * fc6   # (C, 6)
+    g_p = _reduce_pt(data, einsum_hp("oij,oi->oj", Jp, r0_obs))          # (P, 3)
+
+    # per-point damped Hessian blocks and their closed-form inverses
+    Cp = _reduce_pt(data, einsum_hp("oia,oib->oab", Jp, Jp))             # (P, 3, 3)
+    diag_p = torch.diagonal(Cp, dim1=-2, dim2=-1)
+    Cp = Cp + damping * torch.diag_embed(diag_p) + 1e-8 * torch.eye(3, dtype=dt, device=dev)
+    Cinv = torch.zeros_like(Cp) if motion_only else _inv3x3(Cp)
+
+    diag_c = _reduce_cam(data, einsum_hp("oia,oia->oa", Jc, Jc)) * fc6
+    lam_c = damping * diag_c + 1e-8                                      # (C, 6)
+
+    def B_apply(xc):  # camera-camera block (undamped)
+        u = einsum_hp("oij,oj->oi", Jc, xc[data.obs_cam])
+        return _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, u))
+
+    def E_apply(xp):  # camera <- point coupling
+        u = einsum_hp("oij,oj->oi", Jp, xp[data.obs_pt])
+        return _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, u))
+
+    def Et_apply(xc):  # point <- camera coupling
+        u = einsum_hp("oij,oj->oi", Jc, xc[data.obs_cam])
+        return _reduce_pt(data, einsum_hp("oij,oi->oj", Jp, u))
+
+    def S_apply(xc):  # Schur complement: B + lam - E Cinv E^T
+        xc = xc * fc6
+        y = B_apply(xc) + lam_c * xc
+        t = einsum_hp("pab,pb->pa", Cinv, Et_apply(xc))
+        return (y - E_apply(t)) * fc6
+
+    # RHS: v - E Cinv w with v = -g_c, w = -g_p
+    w_p = einsum_hp("pab,pb->pa", Cinv, -g_p)
+    b = (-g_c - E_apply(w_p)) * fc6
+
+    # Block-Jacobi preconditioner on the exact 6x6 diagonal blocks of the
+    # Schur complement (Ceres' SCHUR_JACOBI): each (camera, point) pair
+    # occupies exactly one observation row, so S_cc = sum_o Jc^T Jc + lam -
+    # sum_o (Jc^T Jp) Cinv (Jp^T Jc) assembles per observation and reduces
+    # over the camera segments. A scalar Jacobi preconditioner needs
+    # O(graph diameter) CG iterations on chain-shaped capture arcs.
+    E_o = einsum_hp("oia,oib->oab", Jc, Jp)                              # (O, 6, 3)
+    Cinv_o = Cinv[data.obs_pt]                                           # (O, 3, 3)
+    ECE_o = einsum_hp("oab,obc,odc->oad", E_o, Cinv_o, E_o)              # (O, 6, 6)
+    B_o = einsum_hp("oia,oib->oab", Jc, Jc)
+    S_blk = _reduce_cam(data, (B_o - ECE_o).reshape(-1, 36)).reshape(C, 6, 6)
+    S_blk = S_blk + torch.diag_embed(lam_c)
+    # Gauge-fixed and observation-free cameras: their CG coordinates must
+    # stay exactly zero; an identity block keeps the inverse benign there.
+    live = (fc6[:, 0] > 0) & (diag_c.sum(dim=-1) > 0)
+    S_blk = torch.where(live[:, None, None], S_blk, torch.eye(6, dtype=dt, device=dev))
+    M_blk = torch.linalg.inv_ex(S_blk)[0]                                # (C, 6, 6)
+
+    def M_apply(r):
+        return einsum_hp("cab,cb->ca", M_blk, r) * fc6
+
+    x = torch.zeros_like(b)
+    r = b
+    z = M_apply(b)
+    p = z
+    for _ in range(cg_iters):
+        Ap = S_apply(p)
+        rz = (r * z).sum()
+        alpha = rz / (p * Ap).sum().clamp_min(1e-12)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M_apply(r)
+        beta = (r * z).sum() / rz.clamp_min(1e-12)
+        p = z + beta * p
+    dc = x * fc6
+
+    # back-substitute the point step: dp = Cinv (w - E^T dc)
+    dp = einsum_hp("pab,pb->pa", Cinv, -g_p - Et_apply(dc))
+
+    cand = BAParams(xi=dc, dX=dp)
+    r1 = _residuals(cand, data, robust_w)
+    cost1 = 0.5 * (r1 * r1).sum()
+    return cand, cost0, cost1
+
+
+def _lm_loop(
+    data: BAData,
+    damping0,
+    delta,
+    max_iters: int = 20,
+    cg_iters: int = 40,
+    motion_only: bool = False,
+):
+    """Full LM optimization (accept/reject + damping schedule). Returns
+    (R, t, X, accepted_iterations). Only accepted steps count towards
+    max_iters; a run of rejections ends through the damping bound."""
+    R0, t0, X0 = data.R0, data.t0, data.X0
+    damping = torch.as_tensor(damping0, dtype=X0.dtype, device=X0.device)
+    it = 0
+    while it < max_iters:
+        cand, cost0, cost1 = _lm_step(
+            data._replace(R0=R0, t0=t0, X0=X0), damping, delta,
+            cg_iters=cg_iters, motion_only=motion_only,
+        )
+        accept = cost1 < cost0
+        Rn, tn = _apply_increment(cand.xi, R0, t0)
+        R0 = torch.where(accept, Rn, R0)
+        t0 = torch.where(accept, tn, t0)
+        X0 = torch.where(accept, X0 + cand.dX, X0)
+        converged = accept & ((cost0 - cost1) / cost0.clamp_min(1e-12) < 1e-5)
+        diverged = ~accept & (damping > 1e4)
+        damping = torch.where(accept, (damping * 0.5).clamp_min(1e-8), damping * 4.0)
+        # the one host read of the iteration
+        accepted, done = torch.stack([accept, converged | diverged]).tolist()
+        it += int(accepted)
+        if done:
+            break
+    return R0, t0, X0, it
+
+
+def _lm_loop_from_log(
+    K, R0, t0, X0,
+    log_cam, log_pid, log_xy,  # (cap,) raw camera ids / (cap,) point ids / (cap, 2)
+    n_obs: int,                # valid log rows
+    row_of,                    # (S,): camera id -> camera row, -1 absent
+    damping0, delta, max_iters: int,
+    cg_iters: int = 24, motion_only: bool = False,
+):
+    """Build BAData from the raw arrival-order log on the device, then run
+    the LM loop. Returns (R, t, X, iters, rms_before, rms_after, n_used)."""
+    cap = log_cam.shape[0]
+    C = R0.shape[0]
+    P = X0.shape[0]
+    dev = X0.device
+    rows = row_of[log_cam.clamp(0, row_of.shape[0] - 1)]
+    valid = (
+        (torch.arange(cap, device=dev) < n_obs) & (rows >= 0) & (log_cam >= 0)
+        & (log_pid >= 0) & (log_pid < P)
+    )
+    # point-major reorder: invalid and padded rows get key P and sort last,
+    # outside every [pt_start, pt_end) segment
+    sort_key = torch.where(valid, log_pid, P)
+    perm = torch.argsort(sort_key, stable=True)
+    obs_pt_key = sort_key[perm]
+    obs_cam = torch.where(valid, rows, 0)[perm]
+    obs_xy = log_xy[perm]
+    obs_w = valid[perm].to(X0.dtype)
+    pts = torch.arange(P, device=dev)
+    pt_start = torch.searchsorted(obs_pt_key, pts, side="left")
+    pt_end = torch.searchsorted(obs_pt_key, pts, side="right")
+    cam_key = torch.where(obs_w > 0, obs_cam, C)
+    cam_perm = torch.argsort(cam_key, stable=True)
+    cam_sorted = cam_key[cam_perm]
+    cams = torch.arange(C, device=dev)
+    cam_start = torch.searchsorted(cam_sorted, cams, side="left")
+    cam_end = torch.searchsorted(cam_sorted, cams, side="right")
+    data = BAData(
+        K=K, R0=R0, t0=t0, X0=X0,
+        obs_cam=obs_cam, obs_pt=obs_pt_key.clamp_max(P - 1),
+        obs_xy=obs_xy, obs_w=obs_w,
+        pt_start=pt_start, pt_end=pt_end,
+        cam_perm=cam_perm, cam_start=cam_start, cam_end=cam_end,
+    )
+    params = BAParams(xi=torch.zeros((C, 6), dtype=X0.dtype, device=dev),
+                      dX=torch.zeros((P, 3), dtype=X0.dtype, device=dev))
+    ones = torch.ones_like(obs_w)
+    n_used = obs_w.sum().clamp_min(1.0)
+    rms0 = torch.sqrt((_residuals(params, data, ones) ** 2).sum() / n_used)
+    R_f, t_f, X_f, iters = _lm_loop(
+        data, damping0, delta, max_iters, cg_iters=cg_iters, motion_only=motion_only)
+    d_fin = data._replace(R0=R_f, t0=t_f, X0=X_f)
+    rms1 = torch.sqrt((_residuals(params, d_fin, ones) ** 2).sum() / n_used)
+    return R_f, t_f, X_f, iters, rms0, rms1, n_used
+
+
+def _bucket(n: int, lo: int) -> int:
+    c = lo
+    while c < n:
+        c *= 4
+    return c
+
+
+def bundle_adjust_log(
+    K: np.ndarray,
+    poses: Dict[int, Tuple[np.ndarray, np.ndarray]],
+    points: np.ndarray,
+    obs_log: np.ndarray,
+    kp_table: Tuple[np.ndarray, np.ndarray],
+    config: Optional[BundleConfig] = None,
+    size_hint: Optional[Tuple[int, int, int]] = None,
+    max_iterations: Optional[int] = None,
+    device_cache: Optional[dict] = None,
+    device="cuda",
+):
+    """Bundle adjustment over an APPEND-ONLY observation log (one device).
+
+    obs_log: (O, 3) int32 rows (pid, cam_id, kp_id) in arrival order: the
+    pipeline appends a row whenever it records an observation. The padded
+    log lives on the device between calls (device_cache, mutated in place);
+    only rows added since the previous call are uploaded. Sizes are padded
+    to x4 buckets (size_hint predicts the final ones), so that the cached
+    log keeps its capacity while the reconstruction grows; the padded rows
+    have weight zero and change no sum.
+
+    poses: {cam_id: (R, t)}; points: (P, 3); kp_table: (kp_flat (sumK, 2),
+    kp_off (V+1,)). Returns (new_poses, new_points, stats)."""
+    t_prep0 = time.time()
+    dev = resolve_device(device)
+    config = config or BundleConfig()
+    hC, hP, hO = size_hint or (0, 0, 0)
+    cam_ids = sorted(poses.keys())
+    cam_row = {c: i for i, c in enumerate(cam_ids)}
+    nC = len(cam_ids)
+    nP = len(points)
+    O = int(len(obs_log))
+    if nC < 2 or nP < 8 or O == 0:
+        return poses, points, {"iterations": 0}
+
+    C = _bucket(max(nC, hC), 4)
+    P = _bucket(max(nP, hP), 256)
+    cap = _bucket(max(O, hO), 256)
+
+    row_need = max(int(obs_log[:, 1].max()), max(cam_ids)) + 1
+    row_of = np.full(_bucket(max(row_need, hC), 4), -1, np.int64)
+    row_of[np.asarray(cam_ids, np.int64)] = np.arange(nC, dtype=np.int64)
+    R0 = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+    t0 = np.zeros((C, 3), np.float32)
+    t0[:, 2] = 1.0
+    R0[:nC] = np.stack([poses[c][0] for c in cam_ids])
+    t0[:nC] = np.stack([poses[c][1] for c in cam_ids])
+    X0 = np.zeros((P, 3), np.float32)
+    X0[:nP] = points
+    t_table = time.time() - t_prep0
+
+    t_up0 = time.time()
+    kp_flat, kp_off = kp_table
+    cache = device_cache if device_cache is not None else {}
+    cached = cache.get("log")
+
+    def rows_of(log_rows):
+        """(cam, pid, xy) host arrays of log rows."""
+        xy = kp_flat[kp_off[log_rows[:, 1]] + log_rows[:, 2]].astype(np.float32)
+        return log_rows[:, 1].astype(np.int64), log_rows[:, 0].astype(np.int64), xy
+
+    if (
+        cached is not None and cached["cap"] == cap and cached["count"] <= O
+        and cached["cam"].device.type == dev.type
+    ):
+        count = cached["count"]
+        dev_cam, dev_pid, dev_xy = cached["cam"], cached["pid"], cached["xy"]
+        if O > count:
+            tc, tp, txy = rows_of(obs_log[count:O])
+            dev_cam[count:O] = torch.from_numpy(tc).to(dev)
+            dev_pid[count:O] = torch.from_numpy(tp).to(dev)
+            dev_xy[count:O] = torch.from_numpy(txy).to(dev)
+    else:
+        # any cache miss (no cache, another capacity or device, a log that
+        # shrank) is a full upload
+        full_cam = np.zeros(cap, np.int64)
+        full_pid = np.zeros(cap, np.int64)
+        full_xy = np.zeros((cap, 2), np.float32)
+        full_cam[:O], full_pid[:O], full_xy[:O] = rows_of(obs_log[:O])
+        dev_cam = torch.from_numpy(full_cam).to(dev)
+        dev_pid = torch.from_numpy(full_pid).to(dev)
+        dev_xy = torch.from_numpy(full_xy).to(dev)
+    cache["log"] = {"cap": cap, "count": O, "cam": dev_cam, "pid": dev_pid, "xy": dev_xy}
+    t_upload = time.time() - t_up0
+    t_prep = time.time() - t_prep0
+
+    t_solve0 = time.time()
+    R_f, t_f, X_f, iters, rms0, rms1, n_used = _lm_loop_from_log(
+        torch.from_numpy(np.asarray(K, np.float32)).to(dev),
+        torch.from_numpy(R0).to(dev), torch.from_numpy(t0).to(dev),
+        torch.from_numpy(X0).to(dev), dev_cam, dev_pid, dev_xy, O,
+        torch.from_numpy(row_of).to(dev),
+        config.init_damping, config.robust_delta_px,
+        config.max_iterations if max_iterations is None else max_iterations,
+        cg_iters=config.cg_iterations, motion_only=config.motion_only,
+    )
+    R_final = R_f.cpu().numpy()
+    t_final = t_f.cpu().numpy()
+    new_poses = {c: (R_final[i], t_final[i]) for c, i in cam_row.items()}
+    new_points = X_f.cpu().numpy()[:nP]
+    stats = {
+        "iterations": int(iters),
+        "rms_before": float(rms0), "rms_after": float(rms1),
+        "num_obs": int(n_used), "prep_s": round(t_prep, 3),
+        "table_s": round(t_table, 3), "upload_s": round(t_upload, 3),
+        "solve_fetch_s": round(time.time() - t_solve0, 3),
+    }
+    return new_poses, new_points, stats

@@ -193,11 +193,14 @@ def test_default_device_is_cuda_and_later_stages_name_the_roadmap():
     pipe = tpipe.SfMPipeline(device="cpu")
     assert pipe.device.type == "cpu" and pipe.config == ReconstructionConfig()
     assert tpipe.SfMPipeline(fast_mode=True, device="cpu").config.sift.max_features == 3000
-    for stage in ("find_best_initial_pair", "initialize", "register_image",
-                  "triangulate_new_points", "bundle_adjustment_full", "reconstruct_global",
-                  "save_ply", "save_colmap"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, section 1, item 6"):
-            getattr(pipe, stage)()
+    # what is still to be ported names its ROADMAP item
+    for stage, item in (("reconstruct_global", "item 10"), ("save_colmap", "item 9")):
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, section 1, {item}"):
+            getattr(pipe, stage)("out")
+    # the back end's stages exist and do nothing on an empty pipeline
+    assert pipe.find_best_initial_pair() is None and pipe.find_next_image() is None
+    assert pipe.register_image(0) is False and pipe.bundle_adjustment_full() is None
+    assert pipe._rescue_unregistered() == 0
     with pytest.raises(NotImplementedError, match="item 11"):
         tpipe.SfMPipeline(neural_mode=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -207,12 +210,16 @@ def test_default_device_is_cuda_and_later_stages_name_the_roadmap():
 
 
 def test_reconstruct_runs_the_front_end_then_stops_at_the_back_end():
+    """Three views of 64x80 match too thinly for an initial pair: the front
+    end runs, and the back end stops at its first stage with the JAX
+    pipeline's error."""
     scene = render_views(n_views=3, image_size=(64, 80), arc_step=0.1)
     pipe = tpipe.SfMPipeline(config=_config(ReconstructionConfig, 8), device="cpu")
     iset = image_set_from_arrays(scene["images"], Camera.from_matrix(scene["K"]))
-    with pytest.raises(NotImplementedError, match="find_best_initial_pair"):
+    with pytest.raises(RuntimeError, match="no valid initial pair found"):
         pipe.reconstruct(image_set=iset)
     assert pipe.stats["num_candidate_pairs"] == 3 and "match_time" in pipe.stats
+    assert pipe.registered == set() and len(pipe.points3d) == 0
 
 
 def test_rematch_recovers_pairs_as_the_jax_pipeline_does(long_span, monkeypatch):

@@ -21,6 +21,17 @@ state. Runs on the CPU in a few minutes:
 5. SIFT on tests/test_torch_sift.py's image: the JAX extractor's agreement
    with itself on the image scaled by 1 + 2^-22, the level that test holds
    the port to.
+6. The whole sparse reconstruction (SfMPipeline.reconstruct of the JAX
+   package at its default configuration) on the same 50 PNGs: cameras,
+   points, reprojection error, waves, full-BA calls and the
+   similarity-aligned pose errors against the scene's true poses
+   (tests/torch_scene.pose_errors): the level that sets the gate of
+   chip_smoke.py's sfm_sparse phase. With `6 port` the port's pipeline
+   runs on the CPU on the same images beside it.
+7. The 5-point solver on 512 exact samples: for how many of them the true
+   E is among the valid candidates (to 1e-4 ... 1e-1 of its unit norm), for
+   the JAX function, the port, and the port given the eigenvectors of the
+   null-space projector as its basis instead of the Householder QR's.
 
     JAX_PLATFORMS=cpu python tests/torch_reference_levels.py 4 5   # parts 4 and 5 only
 """
@@ -119,6 +130,84 @@ def sfm_front_levels():
     print("  " + json.dumps(levels))
 
 
+def sfm_sparse_levels(with_port: bool):
+    import json
+    import tempfile
+    import time
+
+    from PIL import Image
+
+    from recon3d_tpu.sfm.pipeline import SfMPipeline as JaxPipeline
+    from tests.torch_scene import pose_errors
+
+    scene = render_views(n_views=50, image_size=(480, 640), arc_step=0.035,
+                         arc_offset=0.035 * 49 / 2)
+    print("6. SfMPipeline.reconstruct() on the north-star scene, default configuration, "
+          "the scene's K as calibration (CPU)")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, img in enumerate(scene["images"]):
+            Image.fromarray((img * 255).astype(np.uint8)).save(f"{tmp}/view_{i:03d}.png")
+        calib = f"{tmp}/calibration.npz"
+        np.savez(calib, mtx=np.asarray(scene["K"], np.float64), dist=np.zeros(5))
+        runs = [("jax ", lambda: JaxPipeline(calibration_path=calib))]
+        if with_port:
+            from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+            runs.append(("port", lambda: SfMPipeline(calibration_path=calib, device="cpu")))
+        for name, make in runs:
+            pipe = make()
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                pipe.reconstruct(tmp)
+            st = pipe.stats
+            out = {
+                "num_cameras": st["num_cameras"], "num_points": st["num_points"],
+                "mean_reproj_px": round(float(st["mean_reproj_px"]), 4),
+                "waves": st["register_detail_s"]["waves"],
+                "ba_full_calls": st["ba_full_detail_s"]["calls"],
+                "unregistered": sorted(set(range(50)) - set(pipe.registered)),
+                **{k: round(v, 4) for k, v in pose_errors(pipe.poses, scene).items()},
+                "host_seconds": round(time.time() - t0, 1),
+            }
+            print(f"  {name}: " + json.dumps(out), flush=True)
+
+
+def five_point_recovery():
+    import jax.numpy as jnp
+    import torch
+
+    from recon3d_tpu.ops import essential5 as je5
+    from recon3d_tpu_torch.ops import essential5 as te5
+    from recon3d_tpu_torch.ops.linalg import eigh_batched
+    from tests.test_torch_essential import _five_point_samples, _set_distance
+
+    n = 512
+    x1n, x2n, E_true = _five_point_samples(np.random.default_rng(7), n)
+
+    def rates(E, ok):
+        d = np.array([_set_distance(E_true[None], E[s][ok[s]]).min() if ok[s].any() else 9.0
+                      for s in range(n)])
+        return {f"{t:g}": round(float((d < t).mean()), 4) for t in (1e-4, 1e-3, 1e-2, 1e-1)}
+
+    def projector_basis(Q):
+        Qh = torch.linalg.qr(Q.transpose(-1, -2))[0]
+        P = torch.eye(9) - Qh @ Qh.transpose(-1, -2)
+        return eigh_batched(P)[1][..., :, 5:].transpose(-1, -2)
+
+    print("7. 5-point solver: share of 512 exact samples whose true E is among the valid "
+          "candidates, by distance")
+    E, ok = jax.jit(jax.vmap(je5.nister_5point))(jnp.asarray(x1n), jnp.asarray(x2n))
+    print("  jax                        :", rates(np.asarray(E), np.asarray(ok)))
+    E, ok = te5.nister_5point(torch.from_numpy(x1n), torch.from_numpy(x2n))
+    print("  port (Householder QR basis):", rates(E.numpy(), ok.numpy()))
+    qr_basis, te5.null_space_rows = te5.null_space_rows, projector_basis
+    try:
+        E, ok = te5.nister_5point(torch.from_numpy(x1n), torch.from_numpy(x2n))
+    finally:
+        te5.null_space_rows = qr_basis
+    print("  port (projector eigenbasis):", rates(E.numpy(), ok.numpy()))
+
+
 def sift_self_agreement():
     from tests.test_torch_sift import sift_agreement_levels
 
@@ -129,7 +218,11 @@ def sift_self_agreement():
 def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5"}
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7"}
+    if "7" in parts:
+        five_point_recovery()
+    if "6" in parts:
+        sfm_sparse_levels("port" in parts)
     if "4" in parts:
         sfm_front_levels()
     if "5" in parts:

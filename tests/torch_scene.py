@@ -91,3 +91,44 @@ def match_graph_levels(matches, kp_xy, scene, n_components: int,
         "share_under_threshold": float((d < threshold_px).mean()) if len(d) else 0.0,
         "components": int(n_components),
     }
+
+
+def umeyama(src: np.ndarray, dst: np.ndarray):
+    """Least-squares similarity (s, R, t) with dst ~ s R src + t."""
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    xs, xd = src - mu_s, dst - mu_d
+    U, D, Vt = np.linalg.svd(xd.T @ xs / len(src))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    var = (xs ** 2).sum() / len(src)
+    s = float(np.trace(np.diag(D) @ S) / var) if var > 0 else 1.0
+    return s, R, mu_d - s * R @ mu_s
+
+
+def pose_errors(poses, scene) -> dict:
+    """Errors of estimated poses {view: (R, t)} against the scene's true
+    ones over the registered views, after the similarity that aligns the
+    estimated camera centres to the true ones (the measure of
+    scripts/northstar_run.py pose_errors): centre distances in scene units
+    and rotation angles in degrees."""
+    ids = sorted(poses)
+    Rs_e = np.stack([np.asarray(poses[i][0], np.float64) for i in ids])
+    ts_e = np.stack([np.asarray(poses[i][1], np.float64).reshape(3) for i in ids])
+    Rs_g = np.asarray(scene["Rs"], np.float64)[ids]
+    ts_g = np.asarray(scene["ts"], np.float64)[ids]
+    C_e = -np.einsum("vij,vi->vj", Rs_e, ts_e)
+    C_g = -np.einsum("vij,vi->vj", Rs_g, ts_g)
+    s, R, t = umeyama(C_e, C_g)
+    center_err = np.linalg.norm((s * C_e @ R.T + t) - C_g, axis=1)
+    rot_errs = []
+    for Re, Rg in zip(Rs_e, Rs_g):
+        dR = Rg @ (Re @ R.T).T
+        rot_errs.append(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))))
+    return {
+        "mean_center_err": float(center_err.mean()),
+        "max_center_err": float(center_err.max()),
+        "mean_rot_err_deg": float(np.mean(rot_errs)),
+        "max_rot_err_deg": float(np.max(rot_errs)),
+    }
