@@ -1,23 +1,27 @@
-"""Command-line entry point of the PyTorch port: a COLMAP model's images and
-poses -> sparse + dense PLY point clouds.
+"""Command-line entry point of the PyTorch port: images -> sparse + dense
+PLY point clouds and a mesh.
 
 Port of recon3d_tpu/cli.py. The flag surface is the JAX CLI's whole one
-(cli.py:23-75) plus --device. This slice runs the `--from-colmap` path,
-with or without `--mvs`, on one device: load the images, adopt the model's
-intrinsics and poses, PatchMatch, fuse, filter, and write sparse.ply,
-cameras.ply, poses.npz and dense_mvs.ply. Every other mode exits non-zero
-with a message naming it as not yet ported.
+(cli.py:23-75) plus --device. On one device it runs incremental SfM, or
+takes poses and sparse points from a COLMAP model (--from-colmap), then the
+dense stages asked for: PatchMatch (--mvs), plane sweep (--stereo) and the
+TSDF mesh (--mesh, from whichever of the two ran), and writes the JAX
+CLI's files: sparse.ply, cameras.ply, poses.npz, sparse_colmap/
+(--export-colmap), dense_mvs.ply, dense_stereo.ply, mesh.ply. The modes
+not ported yet exit non-zero, naming their ROADMAP item.
 
-Run as `python -m recon3d_tpu_torch.cli <image_dir> --mvs --from-colmap MODEL_DIR`.
+Run as `python -m recon3d_tpu_torch.cli <image_dir> --mvs [--mesh] [--stereo]`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -81,23 +85,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def unported_modes(args) -> list:
-    """The requested modes this port cannot run yet, as flag names."""
-    out = []
-    if not args.from_colmap:
-        out.append("the SfM back end (running without --from-colmap: the front end, "
-                   "sfm.pipeline.SfMPipeline up to match_image_pairs, is ported; "
-                   "registration and bundle adjustment are not)")
-    for flag, on in [
-        ("--stereo", args.stereo), ("--dense", args.dense),
-        ("--combined", args.combined), ("--mesh", args.mesh),
-        ("--neural", args.neural), ("--global-sfm", args.global_sfm),
-        ("--checkpoint-dir", args.checkpoint_dir),
-        ("--profile", args.profile), ("--export-colmap", args.export_colmap),
-        ("--devices > 1", args.devices > 1),
-    ]:
-        if on:
-            out.append(flag)
-    return out
+    """The requested modes this port cannot run yet, each with its item in
+    ROADMAP.md, section 1."""
+    return [
+        f"{flag} (ROADMAP.md, section 1, item {item})"
+        for flag, on, item in [
+            ("--dense", args.dense, 8), ("--combined", args.combined, 8),
+            ("--neural", args.neural, 11), ("--global-sfm", args.global_sfm, 10),
+            ("--checkpoint-dir", args.checkpoint_dir, 9),
+            ("--profile", args.profile, 9),
+            ("--devices > 1", args.devices > 1, 12),
+        ]
+        if on
+    ]
 
 
 def resolve_dataset(dataset: str) -> Path:
@@ -164,6 +164,19 @@ def load_from_colmap(model_dir: str, image_dir: str, cfg, max_images=None,
     return iset, points, colors, poses
 
 
+@contextlib.contextmanager
+def _k1_calls(by_stage: dict, name: str):
+    """Record K1's launches (in all and by shape) and plain-version calls
+    inside the block under `name` (the counts of kernels/warp.py), for
+    --stats-json."""
+    from recon3d_tpu_torch.kernels.warp import counts
+
+    k0, p0, s0 = counts.kernel, counts.plain, counts.by_shape.copy()
+    yield
+    by_stage[name] = {"kernel": counts.kernel - k0, "plain": counts.plain - p0,
+                      "kernel_by_shape": dict(counts.by_shape - s0)}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     missing = unported_modes(args)
@@ -187,62 +200,164 @@ def main(argv=None) -> int:
     output_dir = Path(args.output) if args.output else image_dir / "reconstruction"
     output_dir.mkdir(parents=True, exist_ok=True)
 
-    mode = [m for f, m in [(args.mvs, "PatchMatch MVS"), (args.fast, "Fast/sparse")]
-            if f] or ["Sparse"]
+    mode = [
+        m for f, m in [
+            (args.mvs, "PatchMatch MVS"), (args.stereo, "Plane-sweep stereo"),
+            (args.fast, "Fast/sparse"),
+        ] if f
+    ] or ["Sparse"]
     print(f"recon3d_tpu_torch: {image_dir} -> {output_dir}  "
           f"[{' + '.join(mode)}] on {device}")
-    if args.calibration:
-        print("[colmap] --calibration is superseded by the COLMAP model's "
-              "intrinsics (as in the JAX CLI)")
 
     cfg = ReconstructionConfig.fast() if args.fast else ReconstructionConfig()
     cfg = cfg.replace(sfm=dataclasses.replace(cfg.sfm, seed=args.seed))
     timer = StageTimer()
-    prescales = (cfg.patchmatch.scale,) if args.mvs and not args.fast else ()
+    k1_calls = {}
 
-    with timer.stage("sparse_sfm"):
-        iset, points, colors, poses = load_from_colmap(
-            args.from_colmap, str(image_dir), cfg, args.max_images,
-            device=device, prescales=prescales,
+    # Dense-stage working scales, prescaled at image-load time.
+    will_mvs = args.mvs or (args.mesh and not (args.stereo and not args.mvs))
+    prescales = set()
+    if will_mvs and not args.fast:
+        prescales.add(cfg.patchmatch.scale)
+    if args.stereo and not args.fast:
+        prescales.add(cfg.plane_sweep.scale)
+
+    pipeline = None
+    if args.from_colmap:
+        if args.calibration:
+            print("[colmap] --calibration is superseded by the COLMAP model's "
+                  "intrinsics (as in the JAX CLI)")
+        with timer.stage("sparse_sfm"):
+            iset, points, colors, poses = load_from_colmap(
+                args.from_colmap, str(image_dir), cfg, args.max_images,
+                device=device, prescales=sorted(prescales),
+            )
+        print(f"[colmap] imported {len(poses)} posed images, "
+              f"{len(points):,} sparse points from {args.from_colmap}")
+    else:
+        from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+        pipeline = SfMPipeline(
+            calibration_path=args.calibration,
+            fast_mode=args.fast,
+            config=cfg,
+            prescale_hints=tuple(sorted(prescales)),
+            device=device,
         )
-    print(f"[colmap] imported {len(poses)} posed images, "
-          f"{len(points):,} sparse points from {args.from_colmap}")
+        with timer.stage("sparse_sfm"):
+            points, colors, _ = pipeline.reconstruct(str(image_dir), args.max_images)
+            poses = dict(pipeline.poses)
+        iset = pipeline.image_set
 
     save_ply(str(output_dir / "sparse.ply"), points, colors)
-    ids = sorted(poses)
-    save_cameras_ply(
-        str(output_dir / "cameras.ply"),
-        stack_poses([CameraPose(R=torch.from_numpy(poses[i][0]),
-                                t=torch.from_numpy(poses[i][1])) for i in ids]),
-    )
-    np.savez(
-        output_dir / "poses.npz",
-        image_ids=np.asarray(ids, np.int32),
-        Rs=np.stack([np.asarray(poses[i][0]) for i in ids]),
-        ts=np.stack([np.asarray(poses[i][1]) for i in ids]),
-    )
+    if poses:
+        ids = sorted(poses)
+        save_cameras_ply(
+            str(output_dir / "cameras.ply"),
+            stack_poses([CameraPose(R=torch.from_numpy(np.asarray(poses[i][0])),
+                                    t=torch.from_numpy(np.asarray(poses[i][1])))
+                         for i in ids]),
+        )
+        np.savez(
+            output_dir / "poses.npz",
+            image_ids=np.asarray(ids, np.int32),
+            Rs=np.stack([np.asarray(poses[i][0]) for i in ids]),
+            ts=np.stack([np.asarray(poses[i][1]) for i in ids]),
+        )
     print(f"  sparse.ply: {len(points):,} points")
+    if args.export_colmap and pipeline is not None:
+        pipeline.save_colmap(str(output_dir / "sparse_colmap"))
+        print("  sparse_colmap/: COLMAP text model")
 
-    stats = {}
-    if args.mvs and not args.fast and len(poses) >= 3:
-        from recon3d_tpu_torch.dense.patchmatch import PatchMatchMVS
+    stats = dict(pipeline.stats) if pipeline is not None else {}
+    run_dense = (args.mvs or args.stereo or args.mesh) and not args.fast
+    if run_dense and len(poses) >= 3:
+        camera = iset.camera
+        images = iset.color
+        # --mesh fuses the depth maps of whichever dense stage ran
+        # (plane sweep if --stereo was given without --mvs, else MVS)
+        mesh_from_stereo = args.mesh and args.stereo and not args.mvs
+        mesh_maps, mesh_cloud = None, None
 
-        with timer.stage("patchmatch_mvs"):
-            rec = PatchMatchMVS(iset.camera, cfg.patchmatch, device=device)
-            dp, dc = rec.reconstruct(
-                iset.color, poses, sparse_points=points,
-                host_small=iset.prescaled.get(round(float(cfg.patchmatch.scale), 6)),
-            )
-        stats["patchmatch_breakdown_s"] = rec.stats
-        stats["num_dense_points"] = int(len(dp))
-        if len(dp):
-            save_ply(str(output_dir / "dense_mvs.ply"), dp, dc)
-            print(f"  dense_mvs.ply: {len(dp):,} points")
+        if args.mvs or (args.mesh and not mesh_from_stereo):
+            from recon3d_tpu_torch.dense.patchmatch import PatchMatchMVS
+
+            want_maps = args.mesh and not mesh_from_stereo
+            with timer.stage("patchmatch_mvs"), _k1_calls(k1_calls, "patchmatch_mvs"):
+                rec = PatchMatchMVS(camera, cfg.patchmatch, device=device)
+                out = rec.reconstruct(
+                    images, poses, sparse_points=points, return_maps=want_maps,
+                    host_small=iset.prescaled.get(round(float(cfg.patchmatch.scale), 6)),
+                )
+                dp, dc = out[:2]
+                if want_maps:
+                    mesh_maps, mesh_cloud = out[2], (dp, dc)
+                    # the stage's own fusion gate, min(min_views, J): with
+                    # few views the raw min_views count is unreachable
+                    j = min(cfg.patchmatch.num_source_views, len(poses) - 1)
+                    mesh_min_conf = float(min(cfg.patchmatch.min_views, j))
+            stats["patchmatch_breakdown_s"] = rec.stats
+            stats["num_dense_points"] = int(len(dp))
+            if len(dp):
+                save_ply(str(output_dir / "dense_mvs.ply"), dp, dc)
+                print(f"  dense_mvs.ply: {len(dp):,} points")
+
+        if args.stereo:
+            from recon3d_tpu_torch.dense.plane_sweep import PlaneSweepReconstructor
+
+            with timer.stage("plane_sweep"), _k1_calls(k1_calls, "plane_sweep"):
+                rec = PlaneSweepReconstructor(camera, cfg.plane_sweep, device=device)
+                out = rec.reconstruct(
+                    images, poses, sparse_points=points, return_maps=mesh_from_stereo,
+                    host_small=iset.prescaled.get(round(float(cfg.plane_sweep.scale), 6)),
+                )
+                dp, dc = out[:2]
+                if mesh_from_stereo:
+                    mesh_maps, mesh_cloud = out[2], (dp, dc)
+                    # the stage's per-ref gate min(min_views, #neighbours)
+                    # at its global bound
+                    j = min(cfg.plane_sweep.num_neighbors, len(poses) - 1)
+                    mesh_min_conf = float(min(cfg.plane_sweep.min_views, j))
+            stats["num_stereo_points"] = int(len(dp))
+            if len(dp):
+                save_ply(str(output_dir / "dense_stereo.ply"), dp, dc)
+                print(f"  dense_stereo.ply: {len(dp):,} points")
+
+        if args.mesh and mesh_maps is not None and len(mesh_cloud[0]):
+            from recon3d_tpu_torch.dense.mesh import extract_mesh, mesh_vertex_colors
+            from recon3d_tpu_torch.dense.tsdf import fuse_tsdf
+            from recon3d_tpu_torch.io.ply import save_mesh_ply
+
+            dp, dc = mesh_cloud
+            tsdf_s = {}
+            with timer.stage("tsdf_mesh"):
+                with _k1_calls(k1_calls, "tsdf_mesh"):
+                    vol = fuse_tsdf(
+                        mesh_maps["depth"], mesh_maps["conf"],
+                        mesh_maps["K"], mesh_maps["Rs"], mesh_maps["ts"],
+                        sparse_points=dp,
+                        resolution=args.mesh_resolution,
+                        # conf counts NCC-consistent views; weight only
+                        # pixels the stage's own fusion would keep
+                        min_conf=mesh_min_conf,
+                        timings=tsdf_s,
+                        device=device,
+                    )
+                t_mesh = time.perf_counter()
+                mv, mf = extract_mesh(vol)
+                mc = mesh_vertex_colors(mv, dp, dc)
+                tsdf_s["extract_mesh_s"] = time.perf_counter() - t_mesh
+            stats["tsdf_breakdown_s"] = tsdf_s
+            stats["mesh_vertices"], stats["mesh_faces"] = int(len(mv)), int(len(mf))
+            if len(mf):
+                save_mesh_ply(str(output_dir / "mesh.ply"), mv, mf, mc)
+                print(f"  mesh.ply: {len(mv):,} verts, {len(mf):,} faces")
 
     timer.report()
     if args.stats_json:
         stats["stage_times_s"] = timer.as_dict()
         stats["num_sparse_points"] = int(len(points))
+        stats["k1_calls_by_stage"] = k1_calls
         stats["device"] = (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu")
         with open(args.stats_json, "w") as f:

@@ -9,7 +9,8 @@
 // per sample, at the exact level (no bf16 rounding).
 //
 // Bound: memory traffic. Each sample reads 8 B of (x, y) coordinates and
-// writes 4 B of value plus 1 B of validity; its four texels come from a
+// writes 4 B of value plus 1 B of validity (shared coordinates: 8 B and
+// 1 B once per point, 4 B per plane and point); its four texels come from a
 // plane (PatchMatch: 120x160 = 77 KB and 30x40 floats; a launch's N planes
 // total a few MB at most) that stays resident in the 50 MB L2, so device
 // memory sees ~13 B per sample. Coordinates and outputs are read and
@@ -21,8 +22,9 @@
 //
 // Layout: planes (N, H, W); coords (Nc, M, 2) interleaved (x, y) with
 // Nc == N, or Nc == 1 for coordinates shared by every plane (coord_stride
-// 0); out (N, M) float32; valid (N, M) bool (one byte). Sample m of plane
-// n reads plane n at coords[n * coord_stride + m].
+// 0); out (N, M) float32; valid (Nc, M) bool (one byte), since validity
+// depends on the point alone. Sample m of plane n reads plane n at
+// coords[n * coord_stride + m].
 //
 // The arithmetic repeats the plain PyTorch version operation by operation,
 // each product and sum rounded on its own (__fmul_rn / __fadd_rn forbid
@@ -76,7 +78,7 @@ __global__ void tent_warp_kernel(const float* __restrict__ planes,
       v = acc;
     }
     out[i] = v;
-    valid[i] = ok ? 1 : 0;
+    if (coord_stride != 0 || n == 0) valid[i] = ok ? 1 : 0;
   }
 }
 

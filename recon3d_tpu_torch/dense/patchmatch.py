@@ -409,8 +409,9 @@ class PatchMatchMVS:
     `device` ("cuda" unless the caller asks for "cpu").
 
     Ported: the single-device path without checkpoints of
-    recon3d_tpu/dense/patchmatch.py:476-614. The mesh, checkpoint and
-    return_maps branches are not ported yet.
+    recon3d_tpu/dense/patchmatch.py:476-614, with its return_maps branch
+    (the depth and confidence maps the TSDF mesh stage fuses). The mesh and
+    checkpoint branches are not ported yet.
     """
 
     def __init__(self, camera: Camera, config: Optional[PatchMatchConfig] = None,
@@ -426,9 +427,15 @@ class PatchMatchMVS:
         poses: Dict[int, Tuple[np.ndarray, np.ndarray]],
         sparse_points: Optional[np.ndarray] = None,
         views_per_batch: int = 4,
+        return_maps: bool = False,
         host_small: Optional[np.ndarray] = None,
     ):
-        """host_small: optional (N, H*scale, W*scale, 3) prescaled color
+        """With return_maps=True, returns (points, colors, maps) where maps
+        carries the per-view depth and confidence maps, still on the
+        device, and their geometry: the input of the TSDF mesh stage
+        (dense/tsdf.py).
+
+        host_small: optional (N, H*scale, W*scale, 3) prescaled color
         stack indexed like `images` (ImageSet.small_color)."""
         cfg = self.config
         dev = self.device
@@ -437,7 +444,8 @@ class PatchMatchMVS:
         V = len(ids)
         J = min(cfg.num_source_views, V - 1)
         if V < 3 or J < 2:
-            return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.uint8)
+            empty = np.zeros((0, 3), np.float32), np.zeros((0, 3), np.uint8)
+            return (*empty, None) if return_maps else empty
 
         scale = cfg.scale
         Hs = int(images.shape[1] * scale)
@@ -489,9 +497,13 @@ class PatchMatchMVS:
         depth_all = torch.cat(batch_d, dim=0)
         conf_all = torch.cat(batch_c, dim=0)
         _sync(dev)
-        return self._fuse_and_filter(
+        pts, cols = self._fuse_and_filter(
             depth_all, conf_all, K, Rs, ts, small, row, ids, t0, t_prep, V
         )
+        if return_maps:
+            return pts, cols, {"depth": depth_all, "conf": conf_all, "K": K,
+                               "Rs": Rs, "ts": ts, "ids": list(ids)}
+        return pts, cols
 
     def _depth_batches(self, positions, ids, grays, sources, Rs, ts, ranges, K,
                        row, views_per_batch):

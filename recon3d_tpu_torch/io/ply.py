@@ -1,9 +1,9 @@
 """PLY point-cloud I/O.
 
 PyTorch port of recon3d_tpu/io/ply.py: `save_ply`, `load_ply` and
-`save_cameras_ply`, copied (numpy only, with the optional native C++ ASCII
-fast path of runtime/native.py). The mesh writer and reader wait for the
-TSDF slice.
+`save_cameras_ply`, and the triangle-mesh writer and reader of the TSDF
+stage (`save_mesh_ply`, `load_mesh_ply`), copied (numpy only, with the
+optional native C++ ASCII fast path of runtime/native.py).
 """
 
 from __future__ import annotations
@@ -195,3 +195,150 @@ def load_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         if colors is not None:
             colors = colors[finite]
     return pts, colors
+
+
+def compute_scene_bounds(points: np.ndarray):
+    """(min, max, center, diagonal) of a point cloud (reference utils.py:72-86)."""
+    pts = np.asarray(points).reshape(-1, 3)
+    if pts.shape[0] == 0:
+        z = np.zeros(3, np.float32)
+        return z, z, z, 0.0
+    mn = pts.min(axis=0)
+    mx = pts.max(axis=0)
+    center = (mn + mx) / 2
+    diag = float(np.linalg.norm(mx - mn))
+    return mn, mx, center, diag
+
+
+def save_mesh_ply(
+    path: str,
+    vertices: np.ndarray,
+    faces: np.ndarray,
+    colors: Optional[np.ndarray] = None,
+    binary: bool = True,
+) -> None:
+    """Write a triangle mesh PLY (vertex xyz [+rgb uchar], uchar-counted
+    int32 face indices). Mesh output is a framework capability beyond the
+    reference (point-cloud PLYs only, utils.py:8-37)."""
+    vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
+    faces = np.asarray(faces, np.int32).reshape(-1, 3)
+    nv, nf = len(vertices), len(faces)
+    has_color = colors is not None
+    if has_color:
+        colors = np.asarray(colors)
+        if colors.dtype != np.uint8:
+            colors = np.clip(colors, 0, 255).astype(np.uint8)
+        colors = colors.reshape(-1, 3)
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fmt = "binary_little_endian" if binary else "ascii"
+    color_props = (
+        "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+        if has_color else ""
+    )
+    header = (
+        "ply\n"
+        f"format {fmt} 1.0\n"
+        f"element vertex {nv}\n"
+        "property float x\n"
+        "property float y\n"
+        "property float z\n"
+        f"{color_props}"
+        f"element face {nf}\n"
+        "property list uchar int vertex_indices\n"
+        "end_header\n"
+    )
+    if binary:
+        vdt = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+        if has_color:
+            vdt += [("r", "u1"), ("g", "u1"), ("b", "u1")]
+        vrec = np.empty(nv, dtype=vdt)
+        vrec["x"], vrec["y"], vrec["z"] = (
+            vertices[:, 0], vertices[:, 1], vertices[:, 2]
+        )
+        if has_color:
+            vrec["r"], vrec["g"], vrec["b"] = (
+                colors[:, 0], colors[:, 1], colors[:, 2]
+            )
+        frec = np.empty(nf, dtype=[("n", "u1"), ("i", "<i4", (3,))])
+        frec["n"] = 3
+        frec["i"] = faces
+        with open(path, "wb") as f:
+            f.write(header.encode("ascii"))
+            f.write(vrec.tobytes())
+            f.write(frec.tobytes())
+    else:
+        with open(path, "w") as f:
+            f.write(header)
+            for i in range(nv):
+                row = f"{vertices[i,0]:.6g} {vertices[i,1]:.6g} {vertices[i,2]:.6g}"
+                if has_color:
+                    row += f" {colors[i,0]} {colors[i,1]} {colors[i,2]}"
+                f.write(row + "\n")
+            for i in range(nf):
+                f.write(f"3 {faces[i,0]} {faces[i,1]} {faces[i,2]}\n")
+
+
+def load_mesh_ply(path: str):
+    """Read a triangle-mesh PLY written by save_mesh_ply (ascii or binary
+    little-endian, uchar-counted int32 triangles).
+    Returns (vertices (V,3) f32, faces (F,3) i32, colors (V,3) u8 or None)."""
+    with open(path, "rb") as f:
+        fmt, counts, layouts, header_len = _parse_mesh_header(f)
+    nv, nf = counts
+    vprops = layouts
+    with open(path, "rb") as f:
+        f.seek(header_len)
+        if fmt == "ascii":
+            text = f.read().decode("ascii").strip().split("\n")
+            vrows = [text[i].split() for i in range(nv)]
+            frows = [text[nv + i].split() for i in range(nf)]
+            arr = np.asarray(vrows, np.float64)
+            verts = arr[:, :3].astype(np.float32)
+            cols = (
+                arr[:, 3:6].astype(np.uint8) if arr.shape[1] >= 6 else None
+            )
+            faces = np.asarray([r[1:4] for r in frows], np.int32)
+            return verts, faces, cols
+        vdt = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+        if vprops >= 6:
+            vdt += [("r", "u1"), ("g", "u1"), ("b", "u1")]
+        vrec = np.frombuffer(f.read(np.dtype(vdt).itemsize * nv), dtype=vdt)
+        verts = np.stack([vrec["x"], vrec["y"], vrec["z"]], axis=1)
+        cols = (
+            np.stack([vrec["r"], vrec["g"], vrec["b"]], axis=1)
+            if vprops >= 6 else None
+        )
+        fdt = np.dtype([("n", "u1"), ("i", "<i4", (3,))])
+        frec = np.frombuffer(f.read(fdt.itemsize * nf), dtype=fdt)
+        return verts.astype(np.float32), frec["i"].astype(np.int32), cols
+
+
+def _parse_mesh_header(f):
+    """Minimal header parse for save_mesh_ply's own layouts."""
+    if f.readline().strip() != b"ply":
+        raise ValueError("not a PLY file")
+    fmt = None
+    nv = nf = 0
+    vprops = 0
+    in_vertex = False
+    pos = 0
+    f.seek(0)
+    while True:
+        line = f.readline()
+        pos = f.tell()
+        t = line.strip().split()
+        if not t:
+            continue
+        if t[0] == b"format":
+            fmt = t[1].decode()
+        elif t[0] == b"element":
+            in_vertex = t[1] == b"vertex"
+            if in_vertex:
+                nv = int(t[2])
+            elif t[1] == b"face":
+                nf = int(t[2])
+        elif t[0] == b"property" and in_vertex and t[1] != b"list":
+            vprops += 1
+        elif t[0] == b"end_header":
+            return fmt, (nv, nf), vprops, pos

@@ -23,7 +23,8 @@ import os
 import shutil
 import subprocess
 import time
-from dataclasses import dataclass
+from collections import Counter
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Tuple
 
@@ -40,14 +41,23 @@ NVCC_FLAGS = (
 
 @dataclass
 class LaunchCounts:
-    """How often `tent_warp` launched the kernel and took the plain version."""
+    """How often `tent_warp` launched the kernel and took the plain version;
+    by_shape splits the launches by `shape_key`."""
 
     kernel: int = 0
     plain: int = 0
+    by_shape: Counter = field(default_factory=Counter)
 
     def reset(self) -> None:
         self.kernel = 0
         self.plain = 0
+        self.by_shape.clear()
+
+
+def shape_key(planes: torch.Tensor, coords: torch.Tensor) -> str:
+    """'NxHxW/NcxM': planes (N, H, W) sampled at coords (Nc, M, 2)."""
+    N, H, W = planes.shape
+    return f"{N}x{H}x{W}/{coords.shape[0]}x{coords.shape[1]}"
 
 
 counts = LaunchCounts()
@@ -193,9 +203,10 @@ def tent_warp(
     N, H, W = planes.shape
     M = coords.shape[1]
     out = torch.empty((N, M), dtype=torch.float32, device=planes.device)
-    valid = torch.empty((N, M), dtype=torch.bool, device=planes.device)
+    # one validity row for shared coordinates, expanded as the plain version does
+    valid = torch.empty((coords.shape[0], M), dtype=torch.bool, device=planes.device)
     if N * M == 0:
-        return out, valid
+        return out, valid.expand(N, M)
     lib = _library()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -207,4 +218,5 @@ def tent_warp(
     if rc != 0:
         raise RuntimeError(f"tent_warp kernel launch failed: CUDA error {rc}")
     counts.kernel += 1
-    return out, valid
+    counts.by_shape[shape_key(planes, coords)] += 1
+    return out, valid.expand(N, M)

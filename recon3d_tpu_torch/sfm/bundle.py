@@ -15,10 +15,10 @@ PyTorch port of the single-device part of recon3d_tpu/sfm/bundle.py:
   - gauge fixed by freezing camera 0 (and the scale by damping).
 
 Everything is fixed-shape: observations are padded to capacity with
-weights. The entry point is `bundle_adjust_log`, over the pipeline's
-append-only observation log; the list-based `bundle_adjust` and the
-observation-sharded loop over several devices are not ported (ROADMAP.md,
-section 1, items 6 and 12).
+weights. Two entry points: `bundle_adjust_log`, over the pipeline's
+append-only observation log, and `bundle_adjust`, over per-point
+observation lists. The observation-sharded loop over several devices is
+not ported (ROADMAP.md, section 1, item 12).
 
 The LM loop's condition lives on the device, so each LM iteration costs one
 host read (at most `max_iterations` accepted steps a call); the CG inside
@@ -27,8 +27,9 @@ an iteration reads nothing back.
 
 from __future__ import annotations
 
+import itertools
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -366,6 +367,52 @@ def _bucket(n: int, lo: int) -> int:
     while c < n:
         c *= 4
     return c
+
+
+def kp_table_of(kp_xy) -> Tuple[np.ndarray, np.ndarray]:
+    """(kp_flat (sum N, 2) float32, kp_off (V+1,) int64) of per-view tables."""
+    kp_off = np.zeros(len(kp_xy) + 1, np.int64)
+    np.cumsum(np.fromiter((len(k) for k in kp_xy), np.int64, count=len(kp_xy)),
+              out=kp_off[1:])
+    kp_flat = (np.concatenate([np.asarray(k, np.float32).reshape(-1, 2) for k in kp_xy])
+               if kp_xy else np.zeros((0, 2), np.float32))
+    return kp_flat, kp_off
+
+
+def bundle_adjust(
+    K: np.ndarray,
+    poses: Dict[int, Tuple[np.ndarray, np.ndarray]],
+    points: np.ndarray,
+    observations: List[List[Tuple[int, int]]],
+    kp_xy: List[np.ndarray],
+    config: Optional[BundleConfig] = None,
+    size_hint: Optional[Tuple[int, int, int]] = None,
+    max_iterations: Optional[int] = None,
+    kp_table: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    device="cuda",
+):
+    """Bundle adjustment of per-point observation lists (one device).
+
+    observations[p] = [(cam_id, kp_id), ...]; kp_xy[cam] = (N, 2) pixels;
+    kp_table: optional precomputed (kp_flat, kp_off) concatenation of
+    kp_xy. Flattens the lists into a (pid, cam_id, kp_id) log, dropping
+    observations of cameras absent from `poses`, and solves it with
+    `bundle_adjust_log`. Returns (new_poses, new_points, stats)."""
+    counts = np.fromiter((len(o) for o in observations), np.int64, count=len(observations))
+    O_all = int(counts.sum())
+    flat = np.fromiter(
+        itertools.chain.from_iterable(itertools.chain.from_iterable(observations)),
+        np.int64, count=2 * O_all,
+    ).reshape(-1, 2)
+    keep = np.isin(flat[:, 0], np.fromiter(poses, np.int64, count=len(poses)))
+    cams, kps = flat[keep, 0], flat[keep, 1]
+    kp_table = kp_table if kp_table is not None else kp_table_of(kp_xy)
+    if not ((kps >= 0).all() and (kps < np.diff(kp_table[1])[cams]).all()):
+        raise ValueError("observation keypoint id out of range for its camera")
+    pids = np.repeat(np.arange(len(observations), dtype=np.int64), counts)[keep]
+    obs_log = np.stack([pids, cams, kps], axis=1)
+    return bundle_adjust_log(K, poses, points, obs_log, kp_table, config, size_hint,
+                             max_iterations, device=device)
 
 
 def bundle_adjust_log(

@@ -8,10 +8,9 @@ normalization -> PLY. The host Python here is O(images) control flow only;
 every hot operation is a batched function of recon3d_tpu_torch.ops on the
 pipeline's device.
 
-Not ported yet, and raising NotImplementedError: the rescue pass for
-views left unregistered (when it would run), the COLMAP export and global
-SfM (ROADMAP.md, section 1, items 6, 9 and 10), the neural front end
-(item 11) and sharding over several devices (item 12).
+Not ported yet, and raising NotImplementedError: global SfM (ROADMAP.md,
+section 1, item 10), the neural front end (item 11) and sharding over
+several devices (item 12).
 
 Dynamic-size state (matches, tracks, observations, keypoint tables) lives
 on the host in numpy; device calls are padded to geometric buckets so that
@@ -53,7 +52,7 @@ from recon3d_tpu_torch.ops.triangulate import (
     validate_triangulation,
 )
 from recon3d_tpu_torch.runtime.device import resolve_device
-from recon3d_tpu_torch.sfm.bundle import bundle_adjust_log
+from recon3d_tpu_torch.sfm.bundle import bundle_adjust_log, kp_table_of
 
 
 def _pad_pow2(n: int, lo: int = 256, hi: int = 16384, factor: int = 4) -> int:
@@ -734,16 +733,7 @@ class SfMPipeline:
         change after feature extraction, so this is built once and reused
         by every wave's link checks and by bundle adjustment."""
         if self._kp_cache is None:
-            kp_off = np.zeros(len(self.kp_xy) + 1, np.int64)
-            np.cumsum(
-                np.fromiter((len(k) for k in self.kp_xy), np.int64, count=len(self.kp_xy)),
-                out=kp_off[1:],
-            )
-            kp_flat = (
-                np.concatenate([np.asarray(k, np.float32).reshape(-1, 2) for k in self.kp_xy])
-                if self.kp_xy else np.zeros((0, 2), np.float32)
-            )
-            self._kp_cache = (kp_flat, kp_off)
+            self._kp_cache = kp_table_of(self.kp_xy)
         return self._kp_cache
 
     def _note_kp_link(self, cam: int, kp: int, pid: int):
@@ -1266,26 +1256,143 @@ class SfMPipeline:
                 return
 
     def _rescue_unregistered(self) -> int:
-        """Last-chance recovery of views the match stage starved: a
-        finer-scale extraction of the missing views and their window
-        neighbours, re-matching and relaxed registration waves.
+        """Last-chance recovery of views the match stage starved
+        (feature-poor views whose pair matches never reached
+        pnp_min_correspondences, or blocks cut off from the registered
+        component).
 
-        Not ported yet. With nothing to rescue (the flag off, no view
-        missing, or more missing than rescue_max_images) it returns 0 as
-        the JAX method does; where the pass would run it raises
-        NotImplementedError (ROADMAP.md, section 1, item 6)."""
-        sfm = self.config.sfm
+        try_recover_images can only retry PnP on existing correspondences;
+        these views need new ones. One finer-scale (rescue_scale x)
+        extraction of the missing views and their window neighbours
+        re-matches the local pairs: registered-registered rescue pairs
+        triangulate fresh anchor points from known poses, correspondence
+        propagation hands those points to the missing views, and
+        relaxed-floor registration waves (lower absolute count, stricter
+        inlier fraction) bring the block in. Returns the number of views
+        recovered."""
+        cfg = self.config
+        sfm = cfg.sfm
         if not sfm.rescue_unregistered or self.image_set is None:
             return 0
-        missing = sorted(set(range(len(self.features))) - self.registered)
+        n = len(self.features)
+        missing = sorted(set(range(n)) - self.registered)
         if not missing or len(missing) > sfm.rescue_max_images:
             return 0
         if len(self.registered) < 2:
             return 0
-        raise NotImplementedError(
-            "the rescue pass for unregistered views is not ported yet (ROADMAP.md, "
-            f"section 1, item 6): SfMPipeline._rescue_unregistered, views {missing} "
-            f"of {len(self.features)} are not registered")
+        w = sfm.match_window
+        involved = sorted({
+            j
+            for m in missing
+            for j in range(max(0, m - w), min(n, m + w + 1))
+        })
+        if len(involved) > 2 * sfm.rescue_max_images:
+            return 0
+        local = {g: l for l, g in enumerate(involved)}
+        pairs = [
+            (i, j)
+            for ai, i in enumerate(involved)
+            for j in involved[ai + 1:]
+            if j - i <= w
+        ]
+        if not pairs:
+            return 0
+
+        H0, W0 = self.image_set.gray.shape[1:]
+        s = float(sfm.rescue_scale)
+        if max(H0, W0) * s > 2600:
+            s = 1.0  # load res already near the feature-scale floor
+        gray = self.image_set.gray[involved]
+        if s != 1.0:
+            up = resize(torch.from_numpy(np.ascontiguousarray(gray)).to(self.device),
+                        (int(H0 * s), int(W0 * s))).cpu().numpy()
+        else:
+            up = gray
+        feats = self.extractor.extract_batch(up)
+        res = match_pairs_batched(
+            feats, [(local[i], local[j]) for (i, j) in pairs],
+            self._generator, cfg.match,
+        )
+        xy_up = feats.xy.cpu().numpy()
+        valid_np = feats.valid.cpu().numpy()
+        # resize uses half-pixel centres: x_up = s*x + (s-1)/2
+        xy_load = (xy_up - (s - 1.0) / 2.0) / s
+        S = np.array(
+            [[s, 0.0, (s - 1.0) / 2.0],
+             [0.0, s, (s - 1.0) / 2.0],
+             [0.0, 0.0, 1.0]], np.float32,
+        )
+        mm = max(8, cfg.match.min_matches // 2)
+        offset: Dict[int, int] = {}
+        remap: Dict[int, np.ndarray] = {}
+        added = 0
+        for r, (i, j) in enumerate(pairs):
+            (_, _, idx1, idx2, F, n_inl, n_raw) = res[r]
+            if n_inl < mm:
+                continue
+            for g in (i, j):
+                if g not in offset:
+                    # compact to valid slots; remap match indices through
+                    # the compaction (as _rematch_long_span does)
+                    keep = np.flatnonzero(valid_np[local[g]])
+                    rm = np.full(valid_np.shape[1], -1, np.int64)
+                    rm[keep] = np.arange(len(keep))
+                    remap[g] = rm
+                    offset[g] = len(self.kp_xy[g])
+                    self.kp_xy[g] = np.concatenate(
+                        [self.kp_xy[g], xy_load[local[g]][keep]]
+                    )
+                    self.kp_to_point[g] = np.concatenate([
+                        self.kp_to_point[g],
+                        np.full(len(keep), -1, np.int64),
+                    ])
+            i1 = remap[i][idx1] + offset[i]
+            i2 = remap[j][idx2] + offset[j]
+            key = (i, j)
+            if key in self.matches and not self.matches[key].get("aux"):
+                m0 = self.matches[key]
+                m0["idx1"] = np.concatenate([m0["idx1"], i1])
+                m0["idx2"] = np.concatenate([m0["idx2"], i2])
+                m0["n"] = len(m0["idx1"])
+            else:
+                self.matches[key] = dict(
+                    idx1=i1, idx2=i2, F=S.T @ F @ S, n=len(i1)
+                )
+            added += 1
+        if not added:
+            return 0
+        self._kp_cache = None
+        self._build_kp_links()
+        # Anchor points: fresh finer-scale matches between registered rescue
+        # pairs triangulate directly from their known poses; _note_kp_link
+        # propagation hands the new points to the missing partners' corr.
+        for (i, j) in pairs:
+            if i in self.registered and j in self.registered:
+                self._add_triangulated(i, j)
+        floor = sfm.rescue_min_correspondences
+        rescued: List[int] = []
+        while True:
+            cands = []
+            for m in sorted(set(range(n)) - self.registered):
+                c = self._corr_arrays(m, floor=floor)
+                if c is not None:
+                    cands.append((m, c[0], c[1]))
+            if not cands:
+                break
+            accepted = self._register_wave(
+                cands, min_corr=floor,
+                min_inlier_frac=sfm.rescue_min_inlier_frac,
+            )
+            if not accepted:
+                break
+            self.failed.difference_update(accepted)
+            self._triangulate_images(accepted)
+            self.bundle_adjustment_light()
+            rescued.extend(accepted)
+        if rescued:
+            print(f"[sfm] rescued {len(rescued)} starved views: "
+                  f"{sorted(rescued)}")
+        return len(rescued)
 
     def reconstruct(
         self,
@@ -1493,8 +1600,19 @@ class SfMPipeline:
             "SfMPipeline.reconstruct_global")
 
     def save_colmap(self, out_dir: str):
-        """Export of the sparse model as a COLMAP text model: not ported
-        yet."""
-        raise NotImplementedError(
-            "the COLMAP export of the sparse model is not ported yet (ROADMAP.md, "
-            "section 1, item 9): SfMPipeline.save_colmap")
+        """Export the sparse model as a COLMAP text model (cameras.txt /
+        images.txt / points3D.txt) with full 2D-3D tracks."""
+        from recon3d_tpu_torch.io.colmap import save_colmap_text
+
+        iset = self.image_set
+        save_colmap_text(
+            out_dir,
+            K=self.camera.K.cpu().numpy(),
+            image_size=iset.gray.shape[1:3] if iset is not None else (0, 0),
+            poses=self.poses,
+            points=self.points3d.copy(),
+            colors=self.point_colors.copy(),
+            observations=self.observations,
+            kp_xy=self.kp_xy,
+            names=iset.names if iset is not None else None,
+        )

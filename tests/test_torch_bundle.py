@@ -336,3 +336,83 @@ def test_lm_loop_counts_accepted_steps_and_ends_on_rejections(rng):
     capped = _port(scene, poses, points, log, kp_xy, BundleConfig(max_iterations=20),
                    max_iterations=2)[2]
     assert capped["iterations"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the list-based entry, bundle_adjust
+
+
+def _obs_lists(log, n_points):
+    """Per-point observation lists [(cam, kp), ...] of a point-major log."""
+    obs = [[] for _ in range(n_points)]
+    for p, c, k in log.tolist():
+        obs[p].append((c, k))
+    return obs
+
+
+@pytest.mark.parametrize("motion_only", [False, True])
+def test_bundle_adjust_matches_jax_and_the_log_entry(rng, motion_only):
+    """The port's bundle_adjust against the JAX bundle_adjust on the same
+    lists: the same accepted iterations, rms before and after to 1e-4 px,
+    poses to 1e-4, points to 1e-3; and against the port's own
+    bundle_adjust_log on the same problem, which builds the same table on
+    the device: equal to 1e-6."""
+    scene, poses, points, log, kp_xy = _perturbed_problem(rng, n_cams=5, n_points=150)
+    obs = _obs_lists(log, len(points))
+    kw = dict(max_iterations=10, motion_only=motion_only)
+    ref_poses, ref_points, ref = jba.bundle_adjust(scene["K"], poses, points, obs, kp_xy,
+                                                   JBundleConfig(**kw))
+    new_poses, new_points, stats = tba.bundle_adjust(scene["K"], poses, points, obs, kp_xy,
+                                                     BundleConfig(**kw), device="cpu")
+    assert stats["iterations"] == ref["iterations"] and stats["num_obs"] == ref["num_obs"]
+    assert abs(stats["rms_before"] - ref["rms_before"]) < 1e-4
+    assert abs(stats["rms_after"] - ref["rms_after"]) < 1e-4
+    np.testing.assert_allclose(new_points, ref_points, atol=1e-3)
+    for c in ref_poses:
+        np.testing.assert_allclose(new_poses[c][0], ref_poses[c][0], atol=1e-4)
+        np.testing.assert_allclose(new_poses[c][1], ref_poses[c][1], atol=1e-4)
+    log_poses, log_points, s_log = _port(scene, poses, points, log, kp_xy, BundleConfig(**kw))
+    assert s_log["iterations"] == stats["iterations"]
+    for k in ("rms_before", "rms_after"):
+        assert abs(s_log[k] - stats[k]) < 1e-6
+    np.testing.assert_allclose(log_points, new_points, atol=1e-6)
+    for c in log_poses:
+        np.testing.assert_allclose(log_poses[c][0], new_poses[c][0], atol=1e-6)
+        np.testing.assert_allclose(log_poses[c][1], new_poses[c][1], atol=1e-6)
+
+
+def test_bundle_adjust_outcomes(rng):
+    """tests/test_bundle.py's outcome tests on the list entry: error
+    reduced below 0.5 px, camera 0 fixed, rotations to 0.3 deg; with 10% of
+    one camera's observations corrupted and Huber at 2 px, rotations to
+    0.5 deg; observations of a camera absent from `poses` are dropped, a
+    keypoint id out of range raises, and too small a problem returns as it
+    came."""
+    scene, poses, points, log, kp_xy = _perturbed_problem(rng)
+    obs = _obs_lists(log, len(points))
+    new_poses, _, stats = tba.bundle_adjust(scene["K"], poses, points, obs, kp_xy,
+                                            BundleConfig(max_iterations=15), device="cpu")
+    assert stats["rms_after"] < 0.5 and stats["rms_after"] < stats["rms_before"] * 0.2
+    np.testing.assert_allclose(new_poses[0][0], poses[0][0], atol=1e-6)
+    for i in range(1, 4):
+        assert rotation_angle_deg(new_poses[i][0], scene["Rs"][i]) < 0.3
+
+    bad = rng.choice(len(points), size=len(points) // 10, replace=False)
+    noisy = [k.copy() for k in kp_xy]
+    noisy[2][bad] += rng.uniform(30, 80, size=(len(bad), 2))
+    new_poses, _, _ = tba.bundle_adjust(scene["K"], poses, points, obs, noisy,
+                                        BundleConfig(max_iterations=15, robust_delta_px=2.0),
+                                        device="cpu")
+    for i in range(1, 4):
+        assert rotation_angle_deg(new_poses[i][0], scene["Rs"][i]) < 0.5
+
+    three = {c: poses[c] for c in (0, 1, 2)}
+    _, _, s3 = tba.bundle_adjust(scene["K"], three, points, obs, kp_xy,
+                                 BundleConfig(max_iterations=3), device="cpu")
+    assert s3["num_obs"] == 3 * len(points)
+    with pytest.raises(ValueError, match="out of range"):
+        tba.bundle_adjust(scene["K"], poses, points, [[(0, 10_000)]] + obs[1:], kp_xy,
+                          device="cpu")
+    same_poses, same_points, s0 = tba.bundle_adjust(scene["K"], {0: poses[0]}, points, obs,
+                                                    kp_xy, device="cpu")
+    assert s0 == {"iterations": 0} and same_points is points

@@ -1,18 +1,25 @@
-"""End-to-end: the port's CLI `--mvs --from-colmap` against the JAX CLI on
-rendered views with a COLMAP model made from the ground-truth poses."""
+"""End-to-end: the port's CLI against the JAX CLI on rendered views: SfM
+(`images --fast`, with --export-colmap and --stats-json) on the 5 views of
+tests/test_cli.py, `images --mvs --mesh --stereo` on the port alone, and
+`--mvs` / `--stereo --mesh` with `--from-colmap` and a COLMAP model made
+from the ground-truth poses."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from recon3d_tpu.cli import main as jax_main
+from recon3d_tpu.io.colmap import load_colmap_text as jax_load_colmap_text
 from recon3d_tpu_torch.cli import build_parser, main
-from recon3d_tpu_torch.io.colmap import save_colmap_text
-from recon3d_tpu_torch.io.ply import load_ply
+from recon3d_tpu_torch.io.colmap import load_colmap_text, save_colmap_text
+from recon3d_tpu_torch.io.ply import load_mesh_ply, load_ply
 from tests.render import render_views
 from tests.torch_scene import sparse_from_depth, surface_gate
+
+torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
@@ -68,21 +75,168 @@ def test_cli_mvs_from_colmap_matches_jax_cli(colmap_scene, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    [],                                    # SfM: no --from-colmap
-    ["--stereo"], ["--dense"], ["--mesh"], ["--neural"], ["--global-sfm"],
-    ["--combined"], ["--export-colmap"], ["--profile", "trace"],
+    ["--dense"], ["--neural"], ["--global-sfm"], ["--combined"], ["--profile", "trace"],
     ["--checkpoint-dir", "ck"], ["--devices", "2"],
 ])
 def test_unported_modes_exit_nonzero(colmap_scene, tmp_path, flags, capsys):
     img_dir, model = colmap_scene
-    argv = [img_dir, "--mvs", "--output", str(tmp_path / "o"), "--device", "cpu", *flags]
-    if flags:
-        argv += ["--from-colmap", model]
+    argv = [img_dir, "--mvs", "--output", str(tmp_path / "o"), "--device", "cpu", *flags,
+            "--from-colmap", model]
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code not in (0, None)
     assert "not yet ported" in str(e.value.code)
+    assert "ROADMAP.md, section 1, item" in str(e.value.code)
     assert not (tmp_path / "o").exists()
+
+
+# ---------------------------------------------------------------------------
+# SfM in front: images without --from-colmap
+
+
+@pytest.fixture(scope="module")
+def sfm_scene(tmp_path_factory):
+    """The 5 views of 128x160 of tests/test_cli.py:13-22 as PNGs."""
+    from PIL import Image
+
+    d = tmp_path_factory.mktemp("torch_cli_sfm")
+    scene = render_views(n_views=5, image_size=(128, 160), arc_step=0.15)
+    for i, img in enumerate(scene["images"]):
+        Image.fromarray((img * 255).astype(np.uint8)).save(d / f"im_{i:03d}.png")
+    return str(d), scene
+
+
+@pytest.fixture(scope="module")
+def fast_runs(sfm_scene, tmp_path_factory):
+    """`images --fast` through both CLIs (the JAX one on one device, as the
+    port runs), the port's with --export-colmap."""
+    img_dir, _ = sfm_scene
+    root = tmp_path_factory.mktemp("torch_cli_fast")
+    common = [img_dir, "--fast", "--seed", "1"]
+    assert jax_main(common + ["--output", str(root / "jax"), "--devices", "1",
+                              "--stats-json", str(root / "jax.json")]) == 0
+    assert main(common + ["--output", str(root / "torch"), "--export-colmap",
+                          "--device", "cpu", "--stats-json", str(root / "torch.json")]) == 0
+    return {k: (root / k, json.loads((root / f"{k}.json").read_text())) for k in ("jax", "torch")}
+
+
+def test_cli_sfm_matches_jax_cli(fast_runs):
+    """Both CLIs register the same cameras, with mean reprojection errors
+    within 0.1 px of each other or both below 1 px, and write sparse.ply,
+    cameras.ply and poses.npz for them."""
+    (out_j, s_j), (out_t, s_t) = fast_runs["jax"], fast_runs["torch"]
+    ids_j, ids_t = (np.load(o / "poses.npz")["image_ids"] for o in (out_j, out_t))
+    np.testing.assert_array_equal(ids_t, ids_j)
+    assert s_t["num_cameras"] == s_j["num_cameras"] == len(ids_t) >= 4
+    e_t, e_j = s_t["mean_reproj_px"], s_j["mean_reproj_px"]
+    assert abs(e_t - e_j) < 0.1 or (e_t < 1.0 and e_j < 1.0), (e_t, e_j)
+    pts, cols = load_ply(str(out_t / "sparse.ply"))
+    assert len(pts) > 100 and cols.shape == pts.shape and s_t["num_sparse_points"] == len(pts)
+    cams, _ = load_ply(str(out_t / "cameras.ply"))
+    assert len(cams) == 2 * len(ids_t)
+    assert not (out_t / "dense_mvs.ply").exists()
+
+
+def test_cli_export_colmap_round_trips(fast_runs, sfm_scene):
+    """sparse_colmap/ reads back through both packages' load_colmap_text:
+    the poses of poses.npz to 1e-5, the sparse points, the shared camera,
+    and image names that exist on disk (the --from-colmap contract)."""
+    img_dir, _ = sfm_scene
+    out, _ = fast_runs["torch"]
+    poses = np.load(out / "poses.npz")
+    pts, _ = load_ply(str(out / "sparse.ply"))
+    for load in (load_colmap_text, jax_load_colmap_text):
+        m = load(str(out / "sparse_colmap"))
+        assert len(m.images) == len(poses["image_ids"]) and len(m.cameras) == 1
+        by_name = {im.name: im for im in m.images.values()}
+        for k, i in enumerate(poses["image_ids"]):
+            im = by_name[f"im_{i:03d}.png"]
+            np.testing.assert_allclose(im.R(), poses["Rs"][k], atol=1e-5)
+            np.testing.assert_allclose(im.t, poses["ts"][k], atol=1e-5)
+            assert (Path(img_dir) / im.name).exists()
+        np.testing.assert_allclose(m.points, pts, atol=1e-5)
+        assert all(len(tr) >= 2 for tr in m.tracks)
+
+
+def test_cli_stats_json(fast_runs):
+    """The port's --stats-json holds every key of the JAX CLI's (the
+    pipeline's stats, stage_times_s, num_sparse_points) and names its
+    device; the sparse stage is the only one timed in a --fast run."""
+    (_, s_j), (_, s_t) = fast_runs["jax"], fast_runs["torch"]
+    assert set(s_j) <= set(s_t), set(s_j) - set(s_t)
+    assert set(s_t["stage_times_s"]) == {"sparse_sfm"} == set(s_j["stage_times_s"])
+    assert s_t["device"] == "cpu" and s_t["k1_calls_by_stage"] == {}
+    for k in ("load_time", "extract_time", "match_time", "init_time", "incremental_time",
+              "final_ba_time", "total_time"):
+        assert s_t[k] >= 0.0
+
+
+@pytest.fixture(scope="module")
+def dense_run(sfm_scene, tmp_path_factory):
+    """`images --mvs --mesh --stereo` through the port's CLI on the CPU."""
+    img_dir, _ = sfm_scene
+    out = tmp_path_factory.mktemp("torch_cli_dense")
+    assert main([img_dir, "--mvs", "--mesh", "--stereo", "--mesh-resolution", "64",
+                 "--seed", "1", "--output", str(out / "r"), "--device", "cpu",
+                 "--stats-json", str(out / "s.json")]) == 0
+    return out / "r", json.loads((out / "s.json").read_text())
+
+
+def test_cli_images_mvs_mesh(dense_run):
+    """tests/test_cli.py::test_cli_mesh_end_to_end (slow there) on the port
+    at --mesh-resolution 64: dense_mvs.ply beside a coloured mesh.ply whose
+    faces index its vertices, and each dense stage took K1's plain version
+    on the CPU (the TSDF stage once a view). The surfaces are not gated
+    here: 5 views of 128x160 give too few features for SfM cameras good
+    enough to hold a cloud to the true planes (tests/test_torch_sfm_back.py
+    holds SfM, the --from-colmap tests hold the dense stages)."""
+    out, stats = dense_run
+    verts, faces, cols = load_mesh_ply(str(out / "mesh.ply"))
+    assert len(verts) > 200 and len(faces) > 400
+    assert cols is not None and cols.shape == verts.shape
+    assert faces.min() >= 0 and faces.max() < len(verts)
+    assert stats["mesh_vertices"] == len(verts) and stats["mesh_faces"] == len(faces)
+    dense, dcols = load_ply(str(out / "dense_mvs.ply"))
+    assert len(dense) == stats["num_dense_points"] > 1000 and dcols.shape == dense.shape
+    assert np.isfinite(dense).all()
+    assert set(stats["stage_times_s"]) == {"sparse_sfm", "patchmatch_mvs", "plane_sweep",
+                                           "tsdf_mesh"}
+    k1 = stats["k1_calls_by_stage"]
+    assert k1["tsdf_mesh"] == {"kernel": 0, "plain": stats["num_cameras"],
+                               "kernel_by_shape": {}}
+    assert all(k1[s]["kernel"] == 0 and k1[s]["plain"] > 0
+               for s in ("patchmatch_mvs", "plane_sweep"))
+
+
+def test_cli_images_stereo(dense_run):
+    """--stereo beside --mvs writes dense_stereo.ply, finite and coloured,
+    in the frame of the SfM cameras: in front of the first of them."""
+    out, stats = dense_run
+    pts, cols = load_ply(str(out / "dense_stereo.ply"))
+    assert len(pts) == stats["num_stereo_points"] > 1000 and cols.shape == pts.shape
+    assert np.isfinite(pts).all()
+    p = np.load(out / "poses.npz")
+    z = (pts @ p["Rs"][0].T + p["ts"][0])[:, 2]
+    assert (z > 0).mean() > 0.95
+
+
+def test_cli_stereo_mesh_from_colmap_matches_jax_cli(colmap_scene, tmp_path):
+    """--stereo --mesh --from-colmap: the mesh fuses the plane-sweep maps
+    (no --mvs) in both CLIs; stereo point counts within 10% of each other,
+    both clouds near the true surfaces, both meshes non-empty."""
+    img_dir, model = colmap_scene
+    argv = [img_dir, "--stereo", "--mesh", "--mesh-resolution", "48", "--from-colmap", model]
+    assert jax_main(argv + ["--output", str(tmp_path / "jax"), "--devices", "1"]) == 0
+    assert main(argv + ["--output", str(tmp_path / "torch"), "--device", "cpu"]) == 0
+    clouds = [load_ply(str(tmp_path / k / "dense_stereo.ply"))[0] for k in ("torch", "jax")]
+    assert 0.9 <= len(clouds[0]) / len(clouds[1]) <= 1.1, [len(c) for c in clouds]
+    for pts in clouds:
+        med, _ = surface_gate(pts)
+        assert med < 0.4, med
+    for k in ("torch", "jax"):
+        assert not (tmp_path / k / "dense_mvs.ply").exists()
+        verts, faces, _ = load_mesh_ply(str(tmp_path / k / "mesh.ply"))
+        assert len(faces) > 100 and faces.max() < len(verts)
 
 
 def test_device_flag(colmap_scene, tmp_path):

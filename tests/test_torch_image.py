@@ -23,6 +23,7 @@ ATOL = 1e-5
     ((12, 16), (48, 64)),     # x4 up (patchmatch.py:190, :351)
     ((33, 47), (14, 20)),     # non-integer ratio
     ((3, 24, 32), (6, 8)),    # leading batch, as the source stack
+    ((3, 30, 40), (60, 80)),  # x2 up of a batch: the rescue pass (pipeline.py:1561-1566)
 ])
 def test_resize_matches_jax_image_resize(rng, shape, out):
     img = rng.random(shape).astype(np.float32)

@@ -30,6 +30,13 @@ from recon3d_tpu_torch.features.frontend import FeatureExtractor
 feats = FeatureExtractor(device="cpu").extract_batch(g[:2, :, :].repeat(2, axis=1).repeat(2, axis=2))
 assert feats.desc.shape[0] == 2 and feats.desc.shape[2] == 128
 assert torch.isfinite(feats.desc).all() and feats.valid.dtype == torch.bool
+from recon3d_tpu_torch.dense.mesh import extract_mesh
+from recon3d_tpu_torch.dense.tsdf import fuse_tsdf
+d = np.full((2, 24, 32), 2.0, np.float32)
+Kn = np.float32([[30, 0, 15.5], [0, 30, 11.5], [0, 0, 1]])
+vol = fuse_tsdf(d, None, Kn, np.stack([np.eye(3)] * 2).astype(np.float32),
+                np.float32([[0, 0, 0], [0.05, 0, 0]]), resolution=16, device="cpu")
+assert vol.tsdf.shape == (16, 16, 16) and len(extract_mesh(vol)[1]) > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "recon3d_tpu"
              or m.startswith("recon3d_tpu."))

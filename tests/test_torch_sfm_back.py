@@ -351,22 +351,59 @@ def test_ply_output(both_results, tmp_path):
     assert cpts.shape[0] == 2 * len(poses)
 
 
-def test_rescue_pass_raises_where_it_would_run(both_results):
-    """With every view registered the rescue pass returns 0, as the JAX
-    method does; with a view missing it names its ROADMAP item."""
-    _, port, *_ = both_results
-    assert port._rescue_unregistered() == 0
-    registered = set(port.registered)
-    port.registered = registered - {4}
-    try:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, section 1, item 6.*\[4\]"):
-            port._rescue_unregistered()
-        off = dataclasses.replace(port.config.sfm, rescue_unregistered=False)
-        port.config = port.config.replace(sfm=off)
-        assert port._rescue_unregistered() == 0
-    finally:
-        port.registered = registered
-        port.config = _config(ReconstructionConfig)
+def _state_without(pipe, views, failed=()):
+    """The reconstruction state of `pipe` with `views` unregistered again:
+    their poses, observations and keypoint links taken out; the 2D-3D
+    correspondence index and the observation log are rebuilt on load."""
+    state = convert.sfm_state_to_numpy(pipe)
+    state["registered"] = [i for i in state["registered"] if i not in views]
+    state["poses"] = {i: p for i, p in state["poses"].items() if i not in views}
+    state["observations"] = [[(c, k) for c, k in obs if c not in views]
+                             for obs in state["observations"]]
+    for v in views:
+        state["kp_to_point"][v] = np.full_like(state["kp_to_point"][v], -1)
+    del state["corr"], state["obs_log"]
+    state["failed"] = list(failed)
+    return state
+
+
+def test_rescue_pass_matches_jax(scene, both_results):
+    """_rescue_unregistered on the JAX and the port pipeline, each loaded
+    with the JAX reconstruction less view 4: both rescue view 4 through the
+    finer-scale re-match (2x upsampled extraction of the views in its
+    window), with the rescued pose within 0.5 deg of the JAX one, and the
+    re-match appends the new keypoints to the view tables in both."""
+    ref, *_ = both_results
+    state = _state_without(ref, {4})
+    jp, tp = _jax_pipeline(scene), _port_pipeline(scene)
+    for pipe in (jp, tp):
+        convert.sfm_state_from_numpy(pipe, state)
+    n_kp = [len(k) for k in tp.kp_xy]
+    assert jp._rescue_unregistered() == 1 and jp.registered == {0, 1, 2, 3, 4}
+    assert tp._rescue_unregistered() == 1 and tp.registered == {0, 1, 2, 3, 4}
+    assert rotation_angle_deg(tp.poses[4][0], jp.poses[4][0]) < 0.5
+    assert np.linalg.norm(tp.poses[4][1] - jp.poses[4][1]) < 0.05
+    assert all(len(k) > n for k, n in zip(tp.kp_xy, n_kp))
+    assert all(len(a) == len(b) for a, b in zip(tp.kp_to_point, tp.kp_xy))
+    assert rotation_angle_deg(tp.poses[4][0], ref.poses[4][0]) < 0.5
+
+
+def test_rescue_pass_returns_zero_where_it_does_not_run(scene, both_results):
+    """Nothing to rescue, the flag off, or more views missing than
+    rescue_max_images: both packages return 0 and leave the state alone."""
+    ref, port, *_ = both_results
+    assert port._rescue_unregistered() == 0 and ref._rescue_unregistered() == 0
+    state = _state_without(ref, {3, 4})
+    for make, cfg_cls in ((_jax_pipeline, JaxConfig), (_port_pipeline, ReconstructionConfig)):
+        cfg = _config(cfg_cls)
+        for sfm in (dataclasses.replace(cfg.sfm, rescue_unregistered=False),
+                    dataclasses.replace(cfg.sfm, rescue_max_images=1)):
+            pipe = make(scene)
+            pipe.config = cfg.replace(sfm=sfm)
+            convert.sfm_state_from_numpy(pipe, state)
+            n_kp = [len(k) for k in pipe.kp_xy]
+            assert pipe._rescue_unregistered() == 0
+            assert pipe.registered == {0, 1, 2} and [len(k) for k in pipe.kp_xy] == n_kp
 
 
 def test_failed_views_are_retried(scene, both_results):

@@ -97,6 +97,8 @@ def test_wrapper_counts_plain_calls_on_cpu_and_checks_inputs(rng):
     warp.counts.reset()
     warp.tent_warp(planes, coords)
     assert (warp.counts.kernel, warp.counts.plain) == (0, 1)
+    assert not warp.counts.by_shape  # only kernel launches are split by shape
+    assert warp.shape_key(planes, coords[:1]) == "2x8x9/1x5"
     with pytest.raises(TypeError):
         warp.tent_warp(planes.double(), coords)
     with pytest.raises(ValueError):

@@ -68,6 +68,8 @@ def test_kernel_matches_plain_on_card(rng, make, shared, cuda_device):
     ref, vref = warp.tent_warp_reference(planes, xy, fill=-1.0)
     torch.cuda.synchronize()
     assert (warp.counts.kernel, warp.counts.plain) == (1, 0)
+    assert warp.counts.by_shape == {warp.shape_key(planes, xy): 1}
+    assert valid.shape == vref.shape == out.shape
     assert torch.equal(valid, vref)
     assert (out - ref).abs().max().item() <= TOL
 

@@ -32,6 +32,24 @@ state. Runs on the CPU in a few minutes:
    E is among the valid candidates (to 1e-4 ... 1e-1 of its unit norm), for
    the JAX function, the port, and the port given the eigenvectors of the
    null-space projector as its basis instead of the Householder QR's.
+8. The JAX CLI's main path, `images --mvs --mesh --calibration K`, on the
+   north-star PNGs: cameras, reprojection error and pose errors, the dense
+   cloud taken into the scene's frame by the SfM cameras
+   (tests/torch_scene.to_scene_frame) on the surface gate, and the mesh:
+   the level of chip_smoke.py's cli_images phase. About 10 minutes.
+9. The JAX CLI's `--stereo --mesh --from-colmap` on the same PNGs with the
+   COLMAP model of the true poses that chip_smoke.py writes: the surface
+   gate of dense_stereo.ply and the mesh, the level of its stereo run.
+10. The rescue pass: the JAX SfMPipeline on the first 20 views of the
+   50-view parity arc (scripts/parity_run.py: arc step 0.06, views 0-9
+   edge-on), seeds 0-7: which views the rescue pass wins back, the level
+   of chip_smoke.py's rescue phase. With `10 port` the port runs beside it
+   on the CPU. About 2 minutes a seed.
+11. The plane sweep on tests/test_torch_plane_sweep.py's scene: the share
+   of confident pixels within each relative-depth bound of the JAX sweep,
+   for the port and for the JAX sweep on images scaled by 1 + 2^-22, and
+   how far one plane's windowed NCC moves between the JAX and the port
+   warp of the same source (the float32 rounding of the homography).
 
     JAX_PLATFORMS=cpu python tests/torch_reference_levels.py 4 5   # parts 4 and 5 only
 """
@@ -172,6 +190,187 @@ def sfm_sparse_levels(with_port: bool):
             print(f"  {name}: " + json.dumps(out), flush=True)
 
 
+NORTH_STAR = dict(n_views=50, image_size=(480, 640), arc_step=0.035, arc_offset=0.035 * 49 / 2)
+
+
+def _write_pngs(scene, img_dir: Path, names=None) -> list:
+    from PIL import Image
+
+    img_dir.mkdir(parents=True, exist_ok=True)
+    names = names or [f"view_{i:03d}.png" for i in range(len(scene["images"]))]
+    for name, img in zip(names, scene["images"]):
+        Image.fromarray((img * 255).astype(np.uint8)).save(img_dir / name)
+    return names
+
+
+def cli_levels():
+    import json
+    import tempfile
+    import time
+
+    from recon3d_tpu.cli import main as jax_cli
+    from recon3d_tpu.io.ply import load_mesh_ply, load_ply
+    from tests.torch_scene import pose_errors, to_scene_frame
+
+    scene = render_views(**NORTH_STAR)
+    print("8. JAX CLI `images --mvs --mesh` on the north-star scene, the scene's K as "
+          "calibration (CPU)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_pngs(scene, tmp / "images")
+        np.savez(tmp / "calibration.npz", mtx=np.asarray(scene["K"], np.float64),
+                 dist=np.zeros(5))
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            jax_cli([str(tmp / "images"), "--mvs", "--mesh", "--calibration",
+                     str(tmp / "calibration.npz"), "--output", str(tmp / "out"),
+                     "--devices", "1", "--stats-json", str(tmp / "stats.json")])
+        st = json.loads((tmp / "stats.json").read_text())
+        p = np.load(tmp / "out" / "poses.npz")
+        poses = {int(i): (R, t) for i, R, t in zip(p["image_ids"], p["Rs"], p["ts"])}
+        dense, _ = load_ply(str(tmp / "out" / "dense_mvs.ply"))
+        med, share = surface_gate(to_scene_frame(dense, poses, scene))
+        verts, faces, _ = load_mesh_ply(str(tmp / "out" / "mesh.ply"))
+        out = {"num_cameras": st["num_cameras"],
+               "mean_reproj_px": round(float(st["mean_reproj_px"]), 4),
+               **{k: round(v, 4) for k, v in pose_errors(poses, scene).items()},
+               "dense_points": len(dense), "dense_median": round(med, 4),
+               "dense_share": round(share, 4), "mesh_vertices": len(verts),
+               "mesh_faces": len(faces),
+               "stage_times_s": {k: round(v, 1) for k, v in st["stage_times_s"].items()},
+               "host_seconds": round(time.time() - t0, 1)}
+        print("  jax : " + json.dumps(out), flush=True)
+
+
+def stereo_levels():
+    import json
+    import tempfile
+
+    from recon3d_tpu.cli import main as jax_cli
+    from recon3d_tpu.io.colmap import save_colmap_text
+    from recon3d_tpu.io.ply import load_mesh_ply, load_ply
+
+    scene = render_views(**NORTH_STAR)
+    print("9. JAX CLI `--stereo --mesh --from-colmap` (true poses) on the north-star scene (CPU)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        names = _write_pngs(scene, tmp / "images")
+        poses = {i: (scene["Rs"][i], scene["ts"][i]) for i in range(len(names))}
+        save_colmap_text(str(tmp / "model"), scene["K"], NORTH_STAR["image_size"], poses,
+                         sparse_from_depth(scene, per_view=100), None, names=names)
+        with contextlib.redirect_stdout(io.StringIO()):
+            jax_cli([str(tmp / "images"), "--stereo", "--mesh", "--from-colmap",
+                     str(tmp / "model"), "--output", str(tmp / "out"), "--devices", "1"])
+        pts, _ = load_ply(str(tmp / "out" / "dense_stereo.ply"))
+        med, share = surface_gate(pts)
+        verts, faces, _ = load_mesh_ply(str(tmp / "out" / "mesh.ply"))
+        print("  jax : " + json.dumps({"stereo_points": len(pts), "median": round(med, 4),
+                                      "share": round(share, 4), "mesh_vertices": len(verts),
+                                      "mesh_faces": len(faces)}), flush=True)
+
+
+RESCUE_SCENE = dict(n_views=20, image_size=(480, 640), arc_step=0.06,
+                    arc_offset=(19 / 2 - 49 / 2) * 0.06)
+
+
+def rescue_levels(with_port: bool, seeds=range(8)):
+    import dataclasses
+    import json
+    import tempfile
+
+    from recon3d_tpu.config import ReconstructionConfig as JaxRC
+    from recon3d_tpu.sfm.pipeline import SfMPipeline as JaxPipeline
+
+    scene = render_views(**RESCUE_SCENE)
+    print("10. the rescue pass on the first 20 views of the 50-view parity arc, "
+          "the scene's K as calibration (CPU)")
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_pngs(scene, Path(tmp))
+        calib = f"{tmp}/calibration.npz"
+        np.savez(calib, mtx=np.asarray(scene["K"], np.float64), dist=np.zeros(5))
+        runs = [("jax ", JaxPipeline, JaxRC)]
+        if with_port:
+            from recon3d_tpu_torch.config import ReconstructionConfig
+            from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+            runs.append(("port", lambda **kw: SfMPipeline(device="cpu", **kw),
+                         ReconstructionConfig))
+        for name, make, rc in runs:
+            for seed in seeds:
+                cfg = rc()
+                pipe = make(calibration_path=calib,
+                            config=cfg.replace(sfm=dataclasses.replace(cfg.sfm, seed=seed)))
+                found = {}
+                rescue = pipe._rescue_unregistered
+
+                def counted(rescue=rescue, pipe=pipe, found=found):
+                    before = set(pipe.registered)
+                    found["n"] = rescue()
+                    found["views"] = sorted(set(pipe.registered) - before)
+                    return found["n"]
+
+                pipe._rescue_unregistered = counted
+                with contextlib.redirect_stdout(io.StringIO()):
+                    pipe.reconstruct(tmp)
+                print(f"  {name} seed {seed}: " + json.dumps({
+                    "rescued": found.get("n"), "rescued_views": found.get("views"),
+                    "num_cameras": len(pipe.registered)}), flush=True)
+
+
+def plane_sweep_agreement():
+    import jax.numpy as jnp
+    import torch
+
+    from recon3d_tpu.dense import plane_sweep as jps
+    from recon3d_tpu_torch.dense import plane_sweep as tps
+    from tests.test_torch_plane_sweep import _agreement, _args
+
+    scene = render_views(n_views=5, image_size=(96, 128), arc_step=0.1)
+    args, _ = _args(scene)
+    print("11. plane sweep: share of the pixels confident in both runs within a relative "
+          "depth bound of the JAX sweep, and of equal counts")
+    for hier in (True, False):
+        kw = dict(num_depths=96, patch=5, ncc_threshold=0.7, min_views=3, hierarchical=hier)
+        fn = jax.jit(jps.sweep_depth_map, static_argnames=tuple(kw))
+        d_j, c_j, _ = (np.asarray(a) for a in fn(*(jnp.asarray(a) for a in args), **kw))
+        scaled = list(args)
+        scaled[0], scaled[1] = args[0] * np.float32(1 + 2 ** -22), args[1] * np.float32(1 + 2 ** -22)
+        d_2, c_2, _ = (np.asarray(a) for a in fn(*(jnp.asarray(a) for a in scaled), **kw))
+        d_t, c_t, _ = (a.numpy() for a in tps.sweep_depth_map(
+            *(torch.from_numpy(np.ascontiguousarray(a)) for a in args), **kw))
+        for name, d, c in (("port given the same images", d_t, c_t),
+                           ("JAX on images x (1 + 2^-22)", d_2, c_2)):
+            rel, cnt = _agreement(d, c, d_j, c_j)
+            print(f"  {'hierarchical' if hier else 'exhaustive  '} {name}: "
+                  + ", ".join(f"{t:g}: {v:.4f}" for t, v in rel.items())
+                  + f"; equal counts {cnt:.4f}")
+    gray, K = args[0], jnp.asarray(args[2])
+    src = jnp.asarray(args[1][1])
+    Rr, tr = jps._relative_pose(*(jnp.asarray(a) for a in (args[3], args[4], args[5][1], args[6][1])))
+    H, W = gray.shape
+    ys, xs = jnp.meshgrid(jnp.arange(H, dtype=jnp.float32), jnp.arange(W, dtype=jnp.float32),
+                          indexing="ij")
+    grid = jnp.stack([xs, ys, jnp.ones_like(xs)], -1)
+
+    @jax.jit
+    def jax_plane(inv):
+        w, ok = jps._warp_by_homography(src, jps.plane_homography(K, Rr, tr, inv), grid)
+        return w, ok, jps._ncc(jnp.asarray(gray), w, ok, 5)
+
+    Hp = tps.plane_homography(torch.from_numpy(args[2]), torch.from_numpy(np.asarray(Rr)),
+                              torch.from_numpy(np.asarray(tr)), torch.tensor(0.25))
+    wt, okt = tps._warp_by_homography(torch.from_numpy(args[1][1])[None], Hp[None, None],
+                                      tps._pixel_grid_h(H, W, torch.float32, "cpu"))
+    wj, okj, nj = (np.asarray(a) for a in jax_plane(jnp.float32(0.25)))
+    from recon3d_tpu_torch.ops.ncc import ncc_windowed
+
+    nt = ncc_windowed(torch.from_numpy(gray), wt[0, 0], okt[0, 0], 5).numpy()
+    dn = np.abs(nt - nj)[okj & okt[0, 0].numpy()]
+    print(f"  one plane (inverse depth 0.25), JAX and port warps of source 1: samples differ "
+          f"by up to {np.abs(wt[0, 0].numpy() - wj).max():.2e}; windowed NCC by up to "
+          f"{dn.max():.3f}, by more than 1e-3 on {(dn > 1e-3).mean():.4f} of the pixels")
+
+
 def five_point_recovery():
     import jax.numpy as jnp
     import torch
@@ -218,7 +417,15 @@ def sift_self_agreement():
 def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7"}
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11"}
+    if "11" in parts:
+        plane_sweep_agreement()
+    if "10" in parts:
+        rescue_levels("port" in parts)
+    if "9" in parts:
+        stereo_levels()
+    if "8" in parts:
+        cli_levels()
     if "7" in parts:
         five_point_recovery()
     if "6" in parts:

@@ -132,3 +132,28 @@ def pose_errors(poses, scene) -> dict:
         "mean_rot_err_deg": float(np.mean(rot_errs)),
         "max_rot_err_deg": float(np.max(rot_errs)),
     }
+
+
+
+def to_scene_frame(points: np.ndarray, poses, scene) -> np.ndarray:
+    """Points of a reconstruction made with estimated poses {view: (R, t)}
+    (an SfM frame: its own scale, rotation and origin) mapped into the
+    scene's frame by the similarity X_scene = s A X + b that best carries
+    the estimated cameras onto the true ones: A is the rotation nearest to
+    the sum of R_true^T R_est over the views (camera centres alone leave
+    the rotation about a short arc's chord free), s and b the least-squares
+    fit of the centres given A. Then surface_gate can hold them to the true
+    planes."""
+    ids = sorted(poses)
+    Rs_e = np.stack([np.asarray(poses[i][0], np.float64) for i in ids])
+    ts_e = np.stack([np.asarray(poses[i][1], np.float64).reshape(3) for i in ids])
+    Rs_g = np.asarray(scene["Rs"], np.float64)[ids]
+    ts_g = np.asarray(scene["ts"], np.float64)[ids]
+    U, _, Vt = np.linalg.svd(np.einsum("vji,vjk->ik", Rs_g, Rs_e))
+    A = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    C_e = -np.einsum("vij,vi->vj", Rs_e, ts_e) @ A.T
+    C_g = -np.einsum("vij,vi->vj", Rs_g, ts_g)
+    de, dg = C_e - C_e.mean(0), C_g - C_g.mean(0)
+    s = float((de * dg).sum() / (de * de).sum())
+    b = C_g.mean(0) - s * C_e.mean(0)
+    return (s * np.asarray(points, np.float64) @ A.T + b).astype(np.float32)
