@@ -1,15 +1,17 @@
 """Smoke test of the PyTorch/CUDA port (recon3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # about 6 minutes on an H100
+    python3 chip_smoke.py    # 4 to 8 minutes on an H100, by the host
 
 Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port, from csrc/, with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the shapes the main path gives it (K1 at its three call sites:
-     PatchMatch, the TSDF lookup, the plane sweep), bit for bit, with times
-     (kernel, plain version, one library call as a yardstick) and the least
-     time the card could take;
+     every shape the main path gives it (K1 at the 13 shapes of its three
+     call sites: PatchMatch, the TSDF lookup, the plane sweep), bit for bit
+     in every variant its launch planner can pick there, with times (each
+     variant, the plain version, one library call as a yardstick) and the
+     least time the card could take; the TSDF shape once more with one
+     plane, which shows what a second plane on the same points costs;
   4. small scene: PatchMatchMVS on the card at the settings of
      tests/test_patchmatch.py::test_full_mvs_reconstructor, held to its gate;
   5. dense from known poses: the port's CLI `--mvs --from-colmap` on the
@@ -33,8 +35,9 @@ Phases, each of which passes or raises:
      --export-colmap` on the same PNGs, K1's counts set to 0 just before and
      read just after: SfM at SFM_SPARSE_GATE, the dense cloud in the scene's
      frame at CLI_DENSE_GATE, mesh.ply, dense_stereo.ply and sparse_colmap/
-     checked, K1 launched by PatchMatch, the plane sweep and the TSDF and
-     its plain version never;
+     checked, K1 launched by PatchMatch, the plane sweep and the TSDF, only
+     at the kernel phase's shapes, in the variant the planner picks there,
+     and its plain version never;
   9. stereo: `--stereo --from-colmap` on the model of the true poses,
      dense_stereo.ply at STEREO_GATE;
  10. the dense stages of the main path once more, each under the profiler
@@ -149,23 +152,32 @@ RESCUE_JAX = 6
 LONG_SPAN = [dict(n_views=12, image_size=(240, 320), arc_step=0.2),
              dict(n_views=10, image_size=(120, 160), arc_step=0.12)]
 
-# K1 at the shapes the main path gives it, one entry per call site:
-# (stage, planes N, H, W, samples per plane M, kind of points). PatchMatch:
-# one keep_best evaluation, a batch of 4 views x J=4 sources = 16 planes; 9
-# candidate fields at the 120x160 fine level (1 + 8 shifts, or 1 + 8
-# refinement samples at the coarse level), 13 at the 30x40 coarse level (1 +
-# 12 propagation shifts). TSDF: one view, its depth and confidence planes
-# sharing the nearest-pixel coordinates of all 192^3 voxels (the CLI's
-# --mesh-resolution). Plane sweep: every second of the 50 views is a
-# reference view (max_ref_views 20 gives a stride of 2), 25 x J=6 neighbours
-# = 150 planes, 8 plane homographies a chunk at the 60x80 half resolution,
-# then 5 candidate fields at 120x160.
+# K1 at every shape the main path gives it: (stage, planes N, H, W, samples
+# per plane M, kind of points). PatchMatch: one keep_best evaluation, a batch
+# of 4 views x J=4 sources = 16 planes (the last of the 13 batches holds 2
+# views, 8 planes), at F candidate fields of the 120x160 fine level (9: 1 +
+# 8 propagation shifts, 5: 1 + 4 refinement samples, 1: the final cost) or
+# the 30x40 coarse level (13: 1 + 12 shifts, 9: 1 + 8 samples). TSDF: one
+# view, its depth and confidence planes sharing the nearest-pixel
+# coordinates of all 192^3 voxels (the CLI's --mesh-resolution). Plane
+# sweep: every second of the 50 views is a reference view (max_ref_views 20
+# gives a stride of 2), 25 x J=6 neighbours = 150 planes, 8 plane
+# homographies a chunk at the 60x80 half resolution, then 5 candidate
+# fields at 120x160.
 K1_SHAPES = [
     ("patchmatch_mvs", 16, 120, 160, 9 * 120 * 160, "fields"),
     ("patchmatch_mvs", 16, 30, 40, 13 * 30 * 40, "fields"),
     ("tsdf_mesh", 2, 120, 160, 192 ** 3, "voxels"),
     ("plane_sweep", 150, 60, 80, 8 * 60 * 80, "fields"),
     ("plane_sweep", 150, 120, 160, 5 * 120 * 160, "fields"),
+    ("patchmatch_mvs", 16, 120, 160, 5 * 120 * 160, "fields"),
+    ("patchmatch_mvs", 16, 120, 160, 1 * 120 * 160, "fields"),
+    ("patchmatch_mvs", 16, 30, 40, 9 * 30 * 40, "fields"),
+    ("patchmatch_mvs", 8, 120, 160, 9 * 120 * 160, "fields"),
+    ("patchmatch_mvs", 8, 120, 160, 5 * 120 * 160, "fields"),
+    ("patchmatch_mvs", 8, 120, 160, 1 * 120 * 160, "fields"),
+    ("patchmatch_mvs", 8, 30, 40, 13 * 30 * 40, "fields"),
+    ("patchmatch_mvs", 8, 30, 40, 9 * 30 * 40, "fields"),
 ]
 K1_REPLACES = "recon3d_tpu/ops/warp_pallas.py:98"
 # Floating-point operations of one bilinear sample: 2 floor, 4 fraction
@@ -270,12 +282,33 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
     return planes, coords.contiguous()
 
 
-def check_k1(planes, coords, what: str):
-    """K1 against its plain version on the card: bit-identical samples and
-    validity, and both valid and invalid points present."""
-    out, valid = warp.tent_warp(planes, coords)
+def k1_bytes(N: int, H: int, W: int, Nc: int, M: int) -> int:
+    """K1's byte count: each input read once (planes, coordinates), each
+    output written once (samples 4 B per plane and point, validity 1 B per
+    point of each coordinate row: shared points have one validity row)."""
+    return N * H * W * 4 + Nc * M * (8 + 1) + N * M * 4
+
+
+def k1_library_call(planes, coords):
+    """grid_sample on K1's work, K1's yardstick: the same planes and points
+    (shared points: the N planes as the channels of one image)."""
+    N, H, W = planes.shape
+    gx = 2.0 * coords[..., 0] / (W - 1) - 1.0
+    gy = 2.0 * coords[..., 1] / (H - 1) - 1.0
+    grid = torch.stack([gx, gy], dim=-1)[:, None]          # (Nc, 1, M, 2)
+    img = planes[None] if coords.shape[0] == 1 else planes[:, None]
+    return lambda: torch.nn.functional.grid_sample(
+        img, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+
+def check_k1(planes, coords, what: str, variant=None):
+    """K1 (the planner's variant, or the one named) against its plain
+    version on the card: bit-identical samples and validity, and both valid
+    and invalid points present."""
+    out, valid = warp.tent_warp(planes, coords, variant=variant)
     ref, ref_valid = warp.tent_warp_reference(planes, coords)
     torch.cuda.synchronize()
+    what = f"{what}, variant {variant or warp.plan_for(planes, coords).variant}"
     if not torch.equal(valid, ref_valid):
         raise AssertionError(f"K1 valid differs from the plain version on {what}")
     if not torch.equal(out, ref):
@@ -288,9 +321,34 @@ def check_k1(planes, coords, what: str):
     return 0.0, n_invalid
 
 
+def k1_variants(planes, coords, coords_u, what: str) -> dict:
+    """Every variant that can take this shape, held bit for bit to the plain
+    version on the main path's points and on uniform ones, and timed on
+    the main path's: {variant: ms}."""
+    N, H, W = planes.shape
+    out = {}
+    for v in warp.variants_for(N, H, W, coords.shape[0], warp.device_limits(planes.device)):
+        check_k1(planes, coords_u, what + " (uniform)", v)
+        check_k1(planes, coords, what, v)
+        out[v] = cuda_ms(lambda: warp.tent_warp(planes, coords, variant=v), 200)
+    return out
+
+
+def k1_bound(N: int, H: int, W: int, Nc: int, M: int) -> dict:
+    n_bytes = k1_bytes(N, H, W, Nc, M)
+    n_ops = N * M * K1_OPS_PER_SAMPLE
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": n_ops}
+
+
 def kernel_phase() -> list:
     """K1 at each shape of K1_SHAPES, on the main path's kind of points and
-    on uniform ones; timed on the main path's kind."""
+    on uniform ones, in every variant the planner can pick there; timed on
+    the main path's kind. At the TSDF shape, the same points once more with
+    one plane (N = 1), which shows whether a second plane costs a second
+    read of the coordinates."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = []
     for stage, N, H, W, M, kind in K1_SHAPES:
@@ -298,16 +356,11 @@ def kernel_phase() -> list:
         shared = kind == "voxels"
         planes, coords = k1_inputs(N, H, W, M, kind, gen)
         coords_u = k1_inputs(1 if shared else N, H, W, M, "uniform", gen)[1]
-        check_k1(planes, coords_u, what + " (uniform)")
+        plan = warp.plan_for(planes, coords)
+        variant_ms = k1_variants(planes, coords, coords_u, what)
         ms_uniform = cuda_ms(lambda: warp.tent_warp(planes, coords_u), 200)
         del coords_u
         err, n_invalid = check_k1(planes, coords, f"{what} ({kind})")
-
-        gx = 2.0 * coords[..., 0] / (W - 1) - 1.0
-        gy = 2.0 * coords[..., 1] / (H - 1) - 1.0
-        grid = torch.stack([gx, gy], dim=-1)[:, None]          # (C, 1, M, 2)
-        # shared points: the N planes as the channels of one image
-        img = planes[None] if shared else planes[:, None]
 
         def k1():
             return warp.tent_warp(planes, coords)
@@ -315,35 +368,42 @@ def kernel_phase() -> list:
         ms = cuda_ms(k1, 200)
         issue_ms = cuda_ms(k1, 200, prefill=False)
         plain_ms = cuda_ms(lambda: warp.tent_warp_reference(planes, coords), 20)
-        library_ms = cuda_ms(
-            lambda: torch.nn.functional.grid_sample(
-                img, grid, mode="bilinear", padding_mode="border", align_corners=True),
-            200,
-        )
-        # each input read once (planes, coordinates), each output written
-        # once (samples 4 B per plane and point, validity 1 B per point:
-        # shared points have one validity row)
-        n_bytes = N * H * W * 4 + coords.shape[0] * M * (8 + 1) + N * M * 4
-        n_ops = N * M * K1_OPS_PER_SAMPLE
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+        library_ms = cuda_ms(k1_library_call(planes, coords), 200)
+        bound = k1_bound(N, H, W, coords.shape[0], M)
         shapes.append({
             "stage": stage, "shape_key": warp.shape_key(planes, coords),
             "planes": [N, H, W], "samples_per_plane": M,
             "shared_points": shared, "invalid": n_invalid,
+            "variant": plan.variant, "plan": vars(plan), "variant_ms": variant_ms,
             "max_abs_err": err, "ms": ms, "issue_ms": issue_ms,
             "ms_uniform_points": ms_uniform,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "ops": n_ops,
+            "plain_ms": plain_ms, "library_ms": library_ms, **bound,
         })
-        print(f"[kernels] tent_warp on {what}: bit-identical to its plain version; "
-              f"{ms:.4f} ms on the device ({ms_uniform:.4f} on uniform points), "
-              f"{issue_ms:.4f} ms a call issued back to back; plain {plain_ms:.4f}, "
-              f"grid_sample {library_ms:.4f}, bound {shapes[-1]['bound_ms']:.4f} "
-              f"by {shapes[-1]['bound_by']} "
-              f"({100 * shapes[-1]['bound_ms'] / ms:.0f}% of it)", flush=True)
-        del planes, coords, grid, img
+        print(f"[kernels] tent_warp on {what}: bit-identical to its plain version in "
+              f"every variant ({', '.join(f'{v} {t:.4f}' for v, t in variant_ms.items())} "
+              f"ms); the planner's {plan.variant} (vec {plan.vec}): {ms:.4f} ms on the device "
+              f"({ms_uniform:.4f} on uniform points), {issue_ms:.4f} ms a call issued "
+              f"back to back; plain {plain_ms:.4f}, grid_sample {library_ms:.4f} "
+              f"(K1/grid_sample {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} "
+              f"by {bound['bound_by']} ({100 * bound['bound_ms'] / ms:.0f}% of it)",
+              flush=True)
+        if shared:
+            one = planes[:1].contiguous()
+            n1 = {"ms": cuda_ms(lambda: warp.tent_warp(one, coords), 200),
+                  "variant": warp.plan_for(one, coords).variant,
+                  "variant_ms": {v: cuda_ms(lambda: warp.tent_warp(one, coords, variant=v), 200)
+                                 for v in warp.variants_for(1, H, W, 1)},
+                  **k1_bound(1, H, W, 1, M)}
+            check_k1(one, coords, f"{what} (one plane)")
+            shapes[-1]["one_plane"] = n1
+            print(f"[kernels] tent_warp on {what}, one plane: {n1['ms']:.4f} ms "
+                  f"({n1['variant']}; "
+                  + ", ".join(f"{v} {t:.4f}" for v, t in n1["variant_ms"].items())
+                  + f"); two planes / one plane {ms / n1['ms']:.2f}; bound "
+                  f"{n1['bound_ms']:.4f} ({100 * n1['bound_ms'] / n1['ms']:.0f}% of it)",
+                  flush=True)
+            del one
+        del planes, coords
     return shapes
 
 
@@ -439,7 +499,7 @@ def main_path(work: Path, card: str) -> dict:
           f"input through patchmatch_mvs; K1 launches {launches}", flush=True)
     argv = [str(img_dir), "--mvs", "--from-colmap", str(work / "model"),
             "--output", str(work / "recon_profiled"), "--device", "cuda"]
-    profile_run(lambda: cli_main(argv), wall, "main path", "tent_warp_kernel", top=8)
+    profile_run(lambda: cli_main(argv), wall, "main path", "tent_warp", top=8)
     return {"launches": launches, "points": len(points), "median": med,
             "share": frac, "wall_s": wall, "stages_s": stages,
             "patchmatch_breakdown_s": stats["patchmatch_breakdown_s"]}
@@ -1049,7 +1109,36 @@ def main() -> int:
     if unseen:
         raise AssertionError(f"the main path never launched K1 at the kernel phase's "
                              f"shapes {unseen}: {images['k1_by_stage']}")
+    if sum(sh["launches"] for sh in shapes) != images["k1_launches"]:
+        raise AssertionError(f"the main path launched K1 at shapes the kernel phase does "
+                             f"not hold: {images['k1_by_stage']}")
+    # launches by variant on the main path, against the planner's pick at
+    # each shape of the kernel phase
+    by_variant, expected = {}, {}
+    for st in images["k1_by_stage"].values():
+        for v, n in st["kernel_by_variant"].items():
+            by_variant[v] = by_variant.get(v, 0) + n
+    for sh in shapes:
+        expected[sh["variant"]] = expected.get(sh["variant"], 0) + sh["launches"]
+    if by_variant != expected:
+        raise AssertionError(f"the main path's K1 variants {by_variant} are not the "
+                             f"planner's picks at its shapes {expected}")
     head = shapes[0]
+    variants = []
+    for v in warp.VARIANTS:
+        picked = [sh["shape_key"] for sh in shapes if sh["variant"] == v]
+        at = next((sh for sh in shapes if sh["variant"] == v), None) or next(
+            (sh for sh in shapes if v in sh["variant_ms"]), None)
+        if at is None:
+            continue
+        variants.append({
+            "name": f"tent_warp/{v}", "route": "cuda",
+            "source": "recon3d_tpu_torch/csrc/warp.cu", "replaces": K1_REPLACES,
+            "launches": by_variant.get(v, 0), "max_abs_err": 0.0,
+            "ms": at["variant_ms"][v], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "timed_at": at["shape_key"],
+            "picked_at": picked})
     kernels = [{
         "name": "tent_warp", "route": "cuda",
         "source": "recon3d_tpu_torch/csrc/warp.cu", "replaces": K1_REPLACES,
@@ -1057,7 +1146,7 @@ def main() -> int:
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "shapes": shapes,
+        "library_ms": head["library_ms"], "variants": variants, "shapes": shapes,
         "launches_by_stage": images["k1_by_stage"],
         "stereo_run_launches": stereo["k1_by_stage"],
     }]

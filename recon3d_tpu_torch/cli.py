@@ -166,15 +166,17 @@ def load_from_colmap(model_dir: str, image_dir: str, cfg, max_images=None,
 
 @contextlib.contextmanager
 def _k1_calls(by_stage: dict, name: str):
-    """Record K1's launches (in all and by shape) and plain-version calls
-    inside the block under `name` (the counts of kernels/warp.py), for
-    --stats-json."""
+    """Record K1's launches (in all, by shape and by variant) and
+    plain-version calls inside the block under `name` (the counts of
+    kernels/warp.py), for --stats-json."""
     from recon3d_tpu_torch.kernels.warp import counts
 
-    k0, p0, s0 = counts.kernel, counts.plain, counts.by_shape.copy()
+    k0, p0 = counts.kernel, counts.plain
+    s0, v0 = counts.by_shape.copy(), counts.by_variant.copy()
     yield
     by_stage[name] = {"kernel": counts.kernel - k0, "plain": counts.plain - p0,
-                      "kernel_by_shape": dict(counts.by_shape - s0)}
+                      "kernel_by_shape": dict(counts.by_shape - s0),
+                      "kernel_by_variant": dict(counts.by_variant - v0)}
 
 
 def main(argv=None) -> int:

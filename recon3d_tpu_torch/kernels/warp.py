@@ -8,7 +8,10 @@ the note at the top of csrc/warp.cu for what bounds it and why it is a
 
 `tent_warp` is the wrapper: a CPU tensor goes to `tent_warp_reference`,
 the plain PyTorch version; a CUDA tensor launches the kernel or raises.
-`counts` records how often each of the two ran.
+`counts` records how often each of the two ran. `plan_launch`, a pure
+function of the shapes and the coordinate pointer's alignment, picks the
+kernel's variant (own or shared points, taps from L1/L2 or from shared
+memory), its grid, block, vector width and dynamic shared memory.
 
 The kernel is compiled on first use with nvcc into recon3d_tpu_torch/_build
 (a plain C entry point, loaded with ctypes), keyed by a hash of the source
@@ -18,6 +21,7 @@ and flags, so nothing is ever built when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,7 +30,7 @@ import time
 from collections import Counter
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,22 +46,135 @@ NVCC_FLAGS = (
 @dataclass
 class LaunchCounts:
     """How often `tent_warp` launched the kernel and took the plain version;
-    by_shape splits the launches by `shape_key`."""
+    by_shape splits the launches by `shape_key`, by_variant by the variant
+    `plan_launch` chose."""
 
     kernel: int = 0
     plain: int = 0
     by_shape: Counter = field(default_factory=Counter)
+    by_variant: Counter = field(default_factory=Counter)
 
     def reset(self) -> None:
         self.kernel = 0
         self.plain = 0
         self.by_shape.clear()
+        self.by_variant.clear()
 
 
 def shape_key(planes: torch.Tensor, coords: torch.Tensor) -> str:
     """'NxHxW/NcxM': planes (N, H, W) sampled at coords (Nc, M, 2)."""
     N, H, W = planes.shape
     return f"{N}x{H}x{W}/{coords.shape[0]}x{coords.shape[1]}"
+
+
+# ---- the launch planner ---------------------------------------------------
+
+# The kernel's variants, numbered as csrc/warp.cu::tent_warp_launch takes
+# them: own points (coordinate row n for plane n) with taps through L1/L2,
+# and points shared by all planes with taps through L1/L2 or from planes
+# staged in shared memory.
+VARIANTS = ("plane", "shared", "shared_smem")
+THREADS = {"plane": 256, "shared": 256, "shared_smem": 1024}
+MAX_GRID_Y = 65_535
+MAX_THREADS_PER_SM = 2048
+SMEM_RESERVED_PER_BLOCK = 1024
+# The planner narrows the points a thread takes until a launch has this
+# many threads an SM: below it, small launches are bound by latency, which
+# more threads hide better than wider loads do (PERF.md, K1's variants).
+MIN_THREADS_PER_SM = 1024
+
+
+@dataclass(frozen=True)
+class DeviceLimits:
+    sms: int
+    smem_block: int  # dynamic shared memory one block may opt into, bytes
+    smem_sm: int     # shared memory of one SM, bytes
+
+
+H100 = DeviceLimits(sms=132, smem_block=232_448, smem_sm=233_472)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    variant: str
+    grid: Tuple[int, int]
+    block: int
+    vec: int
+    smem_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def staged_bytes(n_floats: int) -> int:
+    """Dynamic shared memory of `shared_smem`: the planes, then the 8-byte
+    mbarrier at the next 16-byte boundary."""
+    return _cdiv(4 * n_floats, 16) * 16 + 8
+
+
+def variants_for(N: int, H: int, W: int, Nc: int,
+                 limits: DeviceLimits = H100) -> List[str]:
+    """The variants that can take planes (N, H, W) at coords (Nc, M, 2):
+    `shared_smem` only where all N planes fit one block's shared memory."""
+    if Nc != 1:
+        return ["plane"]
+    fits = staged_bytes(N * H * W) <= limits.smem_block
+    return ["shared", "shared_smem"] if fits else ["shared"]
+
+
+def vec_widths(M: int, coords_align: int) -> List[int]:
+    """Points a thread may take at once, widest first: 4 and 2 load their
+    coordinates as float4 (16-byte aligned, M a multiple of the width),
+    1 as float2."""
+    return [v for v in (4, 2) if M % v == 0 and coords_align % 16 == 0] + [1]
+
+
+@functools.lru_cache(maxsize=256)
+def plan_launch(N: int, H: int, W: int, Nc: int, M: int, coords_align: int,
+                limits: DeviceLimits = H100, variant: Optional[str] = None,
+                vec: Optional[int] = None) -> LaunchPlan:
+    """K1's launch for planes (N, H, W) sampled at coords (Nc, M, 2) whose
+    data pointer is `coords_align` bytes past a 16-byte boundary.
+
+    Own points take `plane`: a 2-D grid with the plane on y (at most
+    65,535; the kernel loops beyond). Shared points take `shared_smem`
+    where all planes fit one block's shared memory: a persistent grid of as
+    many blocks as fit on the SMs at once, each staging the planes once;
+    else `shared`. vec: the widest of `vec_widths` that leaves the launch
+    MIN_THREADS_PER_SM threads an SM, else 1. `variant` and `vec` force one
+    of `variants_for`'s and `vec_widths`'."""
+    if N < 1 or M < 1 or H < 1 or W < 1 or Nc not in (1, N):
+        raise ValueError(f"K1 plan: planes ({N}, {H}, {W}), coords ({Nc}, {M}, 2)")
+    if M >= 2**30 or H * W >= 2**30:
+        raise ValueError(f"K1 indexes a plane and a coordinate row with 32 bits "
+                         f"(below 2^30): H*W={H * W}, M={M}")
+    if coords_align % 8:
+        raise ValueError("tent_warp: coords must be 8-byte aligned (float2 loads)")
+    widths = vec_widths(M, coords_align)
+    if vec is None:
+        points = M if Nc == 1 else N * M
+        vec = next((v for v in widths if points // v >= limits.sms * MIN_THREADS_PER_SM), 1)
+    elif vec not in widths:
+        raise ValueError(f"K1 takes {widths} points a thread at M={M}, coordinates "
+                         f"{coords_align} bytes past 16, not {vec}")
+    options = variants_for(N, H, W, Nc, limits)
+    if variant is None:
+        variant = options[-1]
+    elif variant not in options:
+        raise ValueError(f"K1 variant {variant!r} cannot take planes ({N}, {H}, {W}) at "
+                         f"coords ({Nc}, {M}, 2); it can take {options}")
+    threads = THREADS[variant]
+    groups = M // vec
+    if variant == "plane":
+        return LaunchPlan(variant, (_cdiv(groups, threads), min(N, MAX_GRID_Y)), threads, vec, 0)
+    if variant == "shared":
+        return LaunchPlan(variant, (_cdiv(groups, threads), 1), threads, vec, 0)
+    smem = staged_bytes(N * H * W)
+    per_sm = max(1, min(MAX_THREADS_PER_SM // threads,
+                        limits.smem_sm // (smem + SMEM_RESERVED_PER_BLOCK)))
+    blocks = min(limits.sms * per_sm, _cdiv(groups, threads))
+    return LaunchPlan(variant, (blocks, 1), threads, vec, smem)
 
 
 counts = LaunchCounts()
@@ -106,22 +223,54 @@ def _library():
     if _lib is None:
         path, _, _ = build()
         lib = ctypes.CDLL(str(path))
-        lib.tent_warp_f32.restype = ctypes.c_int
-        lib.tent_warp_f32.argtypes = [
+        lib.tent_warp_launch.restype = ctypes.c_int
+        lib.tent_warp_launch.argtypes = [
+            ctypes.c_int,        # variant (index into VARIANTS)
+            ctypes.c_int,        # points per thread and step (vec)
             ctypes.c_void_p,     # planes
             ctypes.c_void_p,     # coords
             ctypes.c_void_p,     # out
             ctypes.c_void_p,     # valid
             ctypes.c_longlong,   # n_planes
-            ctypes.c_longlong,   # samples per plane
-            ctypes.c_longlong,   # coordinate stride between planes
+            ctypes.c_longlong,   # points per coordinate row
             ctypes.c_int,        # H
             ctypes.c_int,        # W
             ctypes.c_float,      # fill
+            ctypes.c_uint,       # grid x
+            ctypes.c_uint,       # grid y
+            ctypes.c_int,        # threads per block
+            ctypes.c_int,        # dynamic shared memory, bytes
             ctypes.c_void_p,     # stream
         ]
+        lib.tent_warp_device_info.restype = ctypes.c_int
+        lib.tent_warp_device_info.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
         _lib = lib
     return _lib
+
+
+_limits: Dict[int, DeviceLimits] = {}
+
+
+def device_limits(device: torch.device) -> DeviceLimits:
+    """SMs and shared memory of a CUDA device, read with
+    cudaDeviceGetAttribute once per device."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _limits:
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        rc = _library().tent_warp_device_info(index, *(ctypes.addressof(v) for v in vals))
+        if rc != 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed: CUDA error {rc}")
+        _limits[index] = DeviceLimits(*(v.value for v in vals))
+    return _limits[index]
+
+
+def plan_for(planes: torch.Tensor, coords: torch.Tensor, variant: Optional[str] = None,
+             vec: Optional[int] = None) -> LaunchPlan:
+    """plan_launch for these CUDA tensors on their device."""
+    N, H, W = planes.shape
+    return plan_launch(N, H, W, coords.shape[0], coords.shape[1], coords.data_ptr() % 16,
+                       device_limits(planes.device), variant, vec)
 
 
 def _check(planes: torch.Tensor, coords: torch.Tensor) -> None:
@@ -185,13 +334,19 @@ def tent_warp_reference(
 
 
 def tent_warp(
-    planes: torch.Tensor, coords: torch.Tensor, fill: float = 0.0
+    planes: torch.Tensor, coords: torch.Tensor, fill: float = 0.0,
+    variant: Optional[str] = None, vec: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bilinear samples of N planes: the K1 kernel on CUDA tensors, the plain
     version on CPU tensors. Same arguments and results as
-    `tent_warp_reference`. Inputs must be contiguous float32."""
+    `tent_warp_reference`. Inputs must be contiguous float32, coords 8-byte
+    aligned. `variant` and `vec` force the kernel's variant and points a
+    thread in place of the planner's choice (`plan_launch`)."""
     _check(planes, coords)
     if planes.device.type == "cpu":
+        if variant is not None or vec is not None:
+            raise ValueError("tent_warp: variant and vec name a CUDA kernel's launch; the "
+                             "CPU runs the plain version")
         counts.plain += 1
         return tent_warp_reference(planes, coords, fill)
     if planes.device.type != "cuda":
@@ -208,15 +363,17 @@ def tent_warp(
     if N * M == 0:
         return out, valid.expand(N, M)
     lib = _library()
+    plan = plan_for(planes, coords, variant, vec)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        rc = lib.tent_warp_f32(
-            planes.data_ptr(), coords.data_ptr(), out.data_ptr(),
-            valid.data_ptr(), N, M, 0 if coords.shape[0] == 1 else M,
-            H, W, float(fill), stream,
+        rc = lib.tent_warp_launch(
+            VARIANTS.index(plan.variant), plan.vec, planes.data_ptr(), coords.data_ptr(),
+            out.data_ptr(), valid.data_ptr(), N, M, H, W, float(fill),
+            plan.grid[0], plan.grid[1], plan.block, plan.smem_bytes, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"tent_warp kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"tent_warp kernel launch failed ({plan}): CUDA error {rc}")
     counts.kernel += 1
     counts.by_shape[shape_key(planes, coords)] += 1
+    counts.by_variant[plan.variant] += 1
     return out, valid.expand(N, M)

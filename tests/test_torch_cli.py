@@ -203,7 +203,7 @@ def test_cli_images_mvs_mesh(dense_run):
                                            "tsdf_mesh"}
     k1 = stats["k1_calls_by_stage"]
     assert k1["tsdf_mesh"] == {"kernel": 0, "plain": stats["num_cameras"],
-                               "kernel_by_shape": {}}
+                               "kernel_by_shape": {}, "kernel_by_variant": {}}
     assert all(k1[s]["kernel"] == 0 and k1[s]["plain"] > 0
                for s in ("patchmatch_mvs", "plane_sweep"))
 

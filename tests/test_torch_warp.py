@@ -91,13 +91,40 @@ def test_batched_planes_match_per_plane(rng):
         np.testing.assert_array_equal(vshared[n].numpy(), vb.numpy())
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_plain_on_misaligned_coords_and_odd_count_matches_jax(rng, shared):
+    """The layout the kernel takes on its scalar path (coordinates 8 but not
+    16 bytes past an allocation, M = 1,001 points, not a multiple of 4)
+    gives the JAX gather's samples through the wrapper on the CPU, own or
+    shared points alike."""
+    N, M, Nc = 3, 1001, 1 if shared else 3
+    planes = rng.random((N, 23, 31)).astype(np.float32)
+    xy = (rng.random((Nc, M, 2)) * np.array([36.0, 28.0]) - 2.5).astype(np.float32)
+    xy[0, :3] = [(np.nan, 1.0), (30.0, 22.0), (np.inf, 0.0)]
+    buf = torch.zeros(Nc * M * 2 + 2)
+    coords = buf[2:].view(Nc, M, 2)
+    coords.copy_(torch.from_numpy(xy))
+    assert coords.is_contiguous() and coords.data_ptr() % 16 == 8
+    assert warp.plan_launch(N, 23, 31, Nc, M, 8).vec == 1
+    out, valid = warp.tent_warp(torch.from_numpy(planes), coords, fill=-1.0)
+    assert out.shape == valid.shape == (N, M)
+    for n in range(N):
+        g, vg = jax_bilinear_sample(jnp.asarray(planes[n]), jnp.asarray(xy[0 if shared else n]),
+                                    fill=-1.0)
+        np.testing.assert_array_equal(valid[n].numpy(), np.asarray(vg))
+        np.testing.assert_allclose(out[n].numpy(), np.asarray(g), atol=ATOL, rtol=0)
+
+
 def test_wrapper_counts_plain_calls_on_cpu_and_checks_inputs(rng):
     planes = torch.from_numpy(rng.random((2, 8, 9)).astype(np.float32))
     coords = torch.zeros((2, 5, 2))
     warp.counts.reset()
     warp.tent_warp(planes, coords)
     assert (warp.counts.kernel, warp.counts.plain) == (0, 1)
-    assert not warp.counts.by_shape  # only kernel launches are split by shape
+    # only kernel launches are split by shape and variant
+    assert not warp.counts.by_shape and not warp.counts.by_variant
+    with pytest.raises(ValueError):  # variants are the kernel's; the CPU has one version
+        warp.tent_warp(planes, coords, variant="plane")
     assert warp.shape_key(planes, coords[:1]) == "2x8x9/1x5"
     with pytest.raises(TypeError):
         warp.tent_warp(planes.double(), coords)

@@ -92,6 +92,94 @@ def test_colour_undistort_on_card_matches_cpu(rng, cuda_device):
     assert (on_card.cpu() - on_cpu).abs().max().item() <= 1e-5
 
 
+def _case(rng, device, N, H, W, Nc, M, misaligned=False, planes_offset=False):
+    """Planes in [0, 1] and M points a coordinate row over a margin of two
+    pixels around the image, led by NaN, +-inf, the exact far corner and
+    the origin. misaligned: the coordinates start 8 bytes past a 16-byte
+    boundary. planes_offset: the planes start one odd-sized plane into
+    their allocation, so they cannot be copied with TMA."""
+    planes = torch.from_numpy(rng.random((N + planes_offset, H, W)).astype(np.float32))
+    planes = planes.to(device)[int(planes_offset):]
+    xy = np.stack([rng.random((Nc, M)) * (W + 3) - 2, rng.random((Nc, M)) * (H + 3) - 2], -1)
+    special = [(np.nan, 0.5), (0.5, np.inf), (-np.inf, 0.0), (W - 1, H - 1), (0.0, 0.0)]
+    xy[0, :min(M, len(special))] = special[:M]
+    flat = torch.zeros(Nc * M * 2 + 2 * misaligned, device=device)
+    coords = flat[2 * misaligned:].view(Nc, M, 2)
+    coords.copy_(torch.from_numpy(xy.astype(np.float32)))
+    assert coords.data_ptr() % 16 == (8 if misaligned else 0)
+    return planes, coords
+
+
+# (variant, N, H, W, Nc, M, coordinates misaligned, planes not TMA-aligned)
+VARIANT_CASES = [
+    ("plane", 16, 30, 40, 16, 3600, False, False),
+    ("shared", 2, 120, 160, 1, 40000, False, False),
+    ("shared_smem", 2, 120, 160, 1, 40000, False, False),
+    ("shared_smem", 3, 31, 33, 1, 40000, False, True),   # plain-load staging
+    ("shared_smem", 3, 120, 160, 1, 4096, False, False),  # 230,408 B of shared memory
+    ("shared", 4, 120, 160, 1, 4096, False, False),       # planes do not fit
+    ("plane", 3, 20, 24, 3, 1003, False, False),          # tail: M % 4 = 3, vec 1
+    ("shared", 3, 20, 24, 1, 1001, False, False),
+    ("shared_smem", 3, 20, 24, 1, 1001, False, False),
+    ("plane", 3, 20, 24, 3, 1002, False, False),          # M % 4 = 2: vec 2 or 1
+    ("shared_smem", 3, 20, 24, 1, 1002, False, False),
+    ("plane", 3, 20, 24, 3, 1000, True, False),           # misaligned coordinates
+    ("shared", 3, 20, 24, 1, 1000, True, False),
+    ("shared_smem", 3, 20, 24, 1, 1000, True, False),
+    ("plane", 3, 1, 57, 3, 400, False, False),            # H = 1, W = 1
+    ("plane", 3, 57, 1, 3, 400, False, False),
+    ("shared", 2, 1, 57, 1, 400, False, False),
+    ("shared_smem", 2, 57, 1, 1, 400, False, False),
+    ("plane", 70_000, 2, 3, 70_000, 4, False, False),     # planes beyond grid y
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VARIANT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_every_variant_is_bit_identical_to_plain(rng, case, cuda_device):
+    """Each variant the planner can pick, forced, at every vector width the
+    layout allows, against the plain version: the same bits in samples and
+    validity, tails, misaligned coordinates, planes that TMA cannot copy or
+    that do not fit, one-pixel-wide planes and more planes than a grid's y
+    dimension holds."""
+    variant, N, H, W, Nc, M, misaligned, planes_offset = case
+    planes, coords = _case(rng, cuda_device, N, H, W, Nc, M, misaligned, planes_offset)
+    align = coords.data_ptr() % 16
+    assert variant in warp.variants_for(N, H, W, Nc, warp.device_limits(cuda_device))
+    ref, vref = warp.tent_warp_reference(planes, coords, fill=-1.0)
+    widths = warp.vec_widths(M, align)
+    assert widths == ([1] if misaligned or M % 2 else [4, 2, 1] if M % 4 == 0 else [2, 1])
+    for vec in widths:
+        warp.counts.reset()
+        out, valid = warp.tent_warp(planes, coords, fill=-1.0, variant=variant, vec=vec)
+        torch.cuda.synchronize()
+        assert warp.counts.by_variant == {variant: 1} and warp.counts.plain == 0
+        assert torch.equal(valid, vref), vec
+        assert torch.equal(out, ref), vec
+
+
+@pytest.mark.cuda
+def test_planner_refuses_and_card_refusals_raise(rng, cuda_device):
+    """A variant that cannot take the shape is refused before launch; a
+    launch the card refuses (more shared memory than a block may hold)
+    comes back as an error code, never as a silent no-op."""
+    planes, coords = _case(rng, cuda_device, 4, 120, 160, 1, 64)
+    with pytest.raises(ValueError):
+        warp.tent_warp(planes, coords, variant="shared_smem")  # 307 KB of planes
+    with pytest.raises(ValueError):
+        warp.tent_warp(planes, coords, variant="plane")        # points are shared
+    out = torch.empty((4, 64), device=cuda_device)
+    valid = torch.empty((1, 64), dtype=torch.bool, device=cuda_device)
+    lib = warp._library()
+    rc = lib.tent_warp_launch(
+        warp.VARIANTS.index("shared_smem"), 4, planes.data_ptr(), coords.data_ptr(),
+        out.data_ptr(), valid.data_ptr(), 4, 64, 120, 160, 0.0, 1, 1, 1024, 307_208,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    limits = warp.device_limits(cuda_device)
+    assert limits.sms > 0 and 0 < limits.smem_block <= limits.smem_sm
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(cuda_device):
     planes = torch.rand((2, 8, 9), device=cuda_device)
