@@ -1,7 +1,8 @@
 """Camera intrinsics and extrinsics as plain dataclasses over tensors.
 
 PyTorch port of recon3d_tpu/camera.py (Camera :26-109, CameraPose :112-155,
-stack_poses :158-162, load_calibration :171-182). The JAX package uses
+stack_poses :158-162, projection_from_KRt :165-168, load_calibration
+:171-182). The JAX package uses
 flax.struct pytrees so cameras batch under vmap; here they are plain
 dataclasses holding float32 torch tensors, batched by a leading dimension.
 
@@ -49,6 +50,22 @@ class Camera:
             dist = _f32(dist)
         return cls(K=K, dist=dist)
 
+    @property
+    def fx(self) -> torch.Tensor:
+        return self.K[..., 0, 0]
+
+    @property
+    def fy(self) -> torch.Tensor:
+        return self.K[..., 1, 1]
+
+    @property
+    def cx(self) -> torch.Tensor:
+        return self.K[..., 0, 2]
+
+    @property
+    def cy(self) -> torch.Tensor:
+        return self.K[..., 1, 2]
+
     def scaled(self, scale: float) -> "Camera":
         """Intrinsics for an image resized by `scale` (used by dense backends)."""
         S = torch.tensor(
@@ -56,6 +73,32 @@ class Camera:
             dtype=self.K.dtype, device=self.K.device,
         )
         return Camera(K=S @ self.K, dist=self.dist)
+
+    def project(self, points_cam: torch.Tensor) -> torch.Tensor:
+        """Project camera-frame 3D points to pixels (pinhole, no distortion).
+
+        points_cam: (..., 3) -> (..., 2). z is clamped away from 0 to avoid
+        NaNs; callers gate on z > 0."""
+        z = points_cam[..., 2:3]
+        z = torch.where(z.abs() < 1e-8, torch.where(z < 0, -1e-8, 1e-8).to(z.dtype), z)
+        xy = points_cam[..., :2] / z
+        u = self.fx * xy[..., 0] + self.K[..., 0, 1] * xy[..., 1] + self.cx
+        v = self.fy * xy[..., 1] + self.cy
+        return torch.stack([u, v], dim=-1)
+
+    def unproject(self, pixels: torch.Tensor, depth=1.0) -> torch.Tensor:
+        """Back-project pixels to camera-frame rays scaled by depth.
+
+        pixels: (..., 2), depth scalar or (...,) -> (..., 3)."""
+        depth = torch.as_tensor(depth, dtype=pixels.dtype, device=pixels.device)
+        x = (pixels[..., 0] - self.cx) / self.fx
+        y = (pixels[..., 1] - self.cy) / self.fy
+        d = torch.broadcast_to(depth, x.shape)
+        return torch.stack([x * d, y * d, d], dim=-1)
+
+    def normalized(self, pixels: torch.Tensor) -> torch.Tensor:
+        """Pixel -> normalized image coordinates (z=1 plane)."""
+        return self.unproject(pixels, 1.0)[..., :2]
 
 
 @dataclass(frozen=True)
@@ -65,10 +108,37 @@ class CameraPose:
     R: torch.Tensor
     t: torch.Tensor
 
+    @classmethod
+    def identity(cls, batch_shape=()) -> "CameraPose":
+        batch_shape = tuple(batch_shape)
+        R = torch.eye(3).expand(batch_shape + (3, 3)).clone()
+        return cls(R=R, t=torch.zeros(batch_shape + (3,)))
+
     @property
     def center(self) -> torch.Tensor:
         """Camera center in world frame: C = -R^T t."""
         return -torch.einsum("...ji,...j->...i", self.R, self.t)
+
+    @property
+    def projection_matrix(self) -> torch.Tensor:
+        """[R | t], (..., 3, 4)."""
+        return torch.cat([self.R, self.t[..., :, None]], dim=-1)
+
+    def transform_points(self, points_world: torch.Tensor) -> torch.Tensor:
+        """(..., N, 3) world -> camera frame."""
+        return (torch.einsum("...ij,...nj->...ni", self.R, points_world)
+                + self.t[..., None, :])
+
+    def inverse(self) -> "CameraPose":
+        Rt = self.R.transpose(-1, -2)
+        return CameraPose(R=Rt, t=-torch.einsum("...ij,...j->...i", Rt, self.t))
+
+    def compose(self, other: "CameraPose") -> "CameraPose":
+        """self o other: apply `other` first, then `self`."""
+        return CameraPose(
+            R=self.R @ other.R,
+            t=torch.einsum("...ij,...j->...i", self.R, other.t) + self.t,
+        )
 
     def look_at(self) -> torch.Tensor:
         """Unit forward (+z of camera) direction in world frame."""
@@ -80,6 +150,11 @@ def stack_poses(poses) -> CameraPose:
     return CameraPose(
         R=torch.stack([p.R for p in poses]), t=torch.stack([p.t for p in poses])
     )
+
+
+def projection_from_KRt(K: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """P = K [R | t], (..., 3, 4)."""
+    return K @ torch.cat([R, t[..., :, None]], dim=-1)
 
 
 def load_calibration(path: str) -> Camera:

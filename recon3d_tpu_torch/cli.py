@@ -7,8 +7,11 @@ takes poses and sparse points from a COLMAP model (--from-colmap), then the
 dense stages asked for: PatchMatch (--mvs), plane sweep (--stereo) and the
 TSDF mesh (--mesh, from whichever of the two ran), and writes the JAX
 CLI's files: sparse.ply, cameras.ply, poses.npz, sparse_colmap/
-(--export-colmap), dense_mvs.ply, dense_stereo.ply, mesh.ply. The modes
-not ported yet exit non-zero, naming their ROADMAP item.
+(--export-colmap), dense_mvs.ply, dense_stereo.ply, mesh.ply and dense.ply
+(dense SIFT: --dense, or --combined, which also runs the sweep). With
+--checkpoint-dir it saves the sparse state and each PatchMatch depth map
+and resumes from them; --profile writes a torch.profiler trace of the run.
+The modes not ported yet exit non-zero, naming their ROADMAP item.
 
 Run as `python -m recon3d_tpu_torch.cli <image_dir> --mvs [--mesh] [--stereo]`.
 """
@@ -90,10 +93,7 @@ def unported_modes(args) -> list:
     return [
         f"{flag} (ROADMAP.md, section 1, item {item})"
         for flag, on, item in [
-            ("--dense", args.dense, 8), ("--combined", args.combined, 8),
             ("--neural", args.neural, 11), ("--global-sfm", args.global_sfm, 10),
-            ("--checkpoint-dir", args.checkpoint_dir, 9),
-            ("--profile", args.profile, 9),
             ("--devices > 1", args.devices > 1, 12),
         ]
         if on
@@ -191,11 +191,8 @@ def main(argv=None) -> int:
 
     import torch
 
-    from recon3d_tpu_torch.camera import CameraPose, stack_poses
-    from recon3d_tpu_torch.config import ReconstructionConfig
-    from recon3d_tpu_torch.io.ply import save_cameras_ply, save_ply
     from recon3d_tpu_torch.runtime.device import resolve_device
-    from recon3d_tpu_torch.runtime.profiling import StageTimer
+    from recon3d_tpu_torch.runtime.profiling import StageTimer, maybe_trace
 
     device = resolve_device(args.device)
     image_dir = resolve_dataset(args.dataset)
@@ -205,24 +202,58 @@ def main(argv=None) -> int:
     mode = [
         m for f, m in [
             (args.mvs, "PatchMatch MVS"), (args.stereo, "Plane-sweep stereo"),
+            (args.dense, "Dense SIFT"), (args.combined, "Combined"),
             (args.fast, "Fast/sparse"),
         ] if f
     ] or ["Sparse"]
     print(f"recon3d_tpu_torch: {image_dir} -> {output_dir}  "
           f"[{' + '.join(mode)}] on {device}")
 
-    cfg = ReconstructionConfig.fast() if args.fast else ReconstructionConfig()
-    cfg = cfg.replace(sfm=dataclasses.replace(cfg.sfm, seed=args.seed))
     timer = StageTimer()
     k1_calls = {}
+    with maybe_trace(args.profile, device):
+        stats, points = _run(args, device, image_dir, output_dir, timer, k1_calls)
+
+    timer.report()
+    if args.stats_json:
+        stats["stage_times_s"] = timer.as_dict()
+        stats["num_sparse_points"] = int(len(points))
+        stats["k1_calls_by_stage"] = k1_calls
+        stats["device"] = (torch.cuda.get_device_name(device)
+                           if device.type == "cuda" else "cpu")
+        with open(args.stats_json, "w") as f:
+            json.dump(stats, f, indent=2, default=float)
+        print(f"  stats -> {args.stats_json}")
+    print(f"DONE. Results in {output_dir}")
+    return 0
+
+
+def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict):
+    """The stages the flags ask for (recon3d_tpu/cli.py:217-384). Returns
+    (the --stats-json record so far, the sparse points)."""
+    import torch
+
+    from recon3d_tpu_torch.camera import CameraPose, stack_poses
+    from recon3d_tpu_torch.config import ReconstructionConfig
+    from recon3d_tpu_torch.io.ply import save_cameras_ply, save_ply
+
+    cfg = ReconstructionConfig.fast() if args.fast else ReconstructionConfig()
+    cfg = cfg.replace(sfm=dataclasses.replace(cfg.sfm, seed=args.seed))
 
     # Dense-stage working scales, prescaled at image-load time.
     will_mvs = args.mvs or (args.mesh and not (args.stereo and not args.mvs))
+    will_stereo = args.stereo or args.combined
     prescales = set()
     if will_mvs and not args.fast:
         prescales.add(cfg.patchmatch.scale)
-    if args.stereo and not args.fast:
+    if will_stereo and not args.fast:
         prescales.add(cfg.plane_sweep.scale)
+
+    ckpt = None
+    if args.checkpoint_dir:
+        from recon3d_tpu_torch.runtime.checkpoint import StageCheckpointer
+
+        ckpt = StageCheckpointer(args.checkpoint_dir)
 
     pipeline = None
     if args.from_colmap:
@@ -247,7 +278,15 @@ def main(argv=None) -> int:
             device=device,
         )
         with timer.stage("sparse_sfm"):
-            points, colors, _ = pipeline.reconstruct(str(image_dir), args.max_images)
+            if ckpt and ckpt.restore_sparse(pipeline):
+                print("[ckpt] restored sparse reconstruction")
+                points = pipeline.points3d.copy()
+                colors = pipeline.point_colors.copy()
+                pipeline.load_images(str(image_dir), args.max_images)
+            else:
+                points, colors, _ = pipeline.reconstruct(str(image_dir), args.max_images)
+                if ckpt:
+                    ckpt.save_sparse(pipeline)
             poses = dict(pipeline.poses)
         iset = pipeline.image_set
 
@@ -272,101 +311,106 @@ def main(argv=None) -> int:
         print("  sparse_colmap/: COLMAP text model")
 
     stats = dict(pipeline.stats) if pipeline is not None else {}
-    run_dense = (args.mvs or args.stereo or args.mesh) and not args.fast
-    if run_dense and len(poses) >= 3:
-        camera = iset.camera
-        images = iset.color
-        # --mesh fuses the depth maps of whichever dense stage ran
-        # (plane sweep if --stereo was given without --mvs, else MVS)
-        mesh_from_stereo = args.mesh and args.stereo and not args.mvs
-        mesh_maps, mesh_cloud = None, None
+    run_dense = (
+        (args.mvs or args.stereo or args.dense or args.combined or args.mesh)
+        and not args.fast
+    )
+    if not (run_dense and len(poses) >= 3):
+        return stats, points
+    camera = iset.camera
+    images = iset.color
+    # --mesh fuses the depth maps of whichever dense stage ran
+    # (plane sweep if --stereo was given without --mvs, else MVS)
+    mesh_from_stereo = args.mesh and args.stereo and not args.mvs
+    mesh_maps, mesh_cloud = None, None
 
-        if args.mvs or (args.mesh and not mesh_from_stereo):
-            from recon3d_tpu_torch.dense.patchmatch import PatchMatchMVS
+    if args.mvs or (args.mesh and not mesh_from_stereo):
+        from recon3d_tpu_torch.dense.patchmatch import PatchMatchMVS
 
-            want_maps = args.mesh and not mesh_from_stereo
-            with timer.stage("patchmatch_mvs"), _k1_calls(k1_calls, "patchmatch_mvs"):
-                rec = PatchMatchMVS(camera, cfg.patchmatch, device=device)
-                out = rec.reconstruct(
-                    images, poses, sparse_points=points, return_maps=want_maps,
-                    host_small=iset.prescaled.get(round(float(cfg.patchmatch.scale), 6)),
+        want_maps = args.mesh and not mesh_from_stereo
+        with timer.stage("patchmatch_mvs"), _k1_calls(k1_calls, "patchmatch_mvs"):
+            rec = PatchMatchMVS(camera, cfg.patchmatch, device=device)
+            out = rec.reconstruct(
+                images, poses, sparse_points=points, checkpointer=ckpt,
+                return_maps=want_maps,
+                host_small=iset.prescaled.get(round(float(cfg.patchmatch.scale), 6)),
+            )
+            dp, dc = out[:2]
+            if want_maps:
+                mesh_maps, mesh_cloud = out[2], (dp, dc)
+                # the stage's own fusion gate, min(min_views, J): with
+                # few views the raw min_views count is unreachable
+                j = min(cfg.patchmatch.num_source_views, len(poses) - 1)
+                mesh_min_conf = float(min(cfg.patchmatch.min_views, j))
+        stats["patchmatch_breakdown_s"] = rec.stats
+        stats["num_dense_points"] = int(len(dp))
+        if len(dp):
+            save_ply(str(output_dir / "dense_mvs.ply"), dp, dc)
+            print(f"  dense_mvs.ply: {len(dp):,} points")
+
+    if will_stereo:
+        from recon3d_tpu_torch.dense.plane_sweep import PlaneSweepReconstructor
+
+        with timer.stage("plane_sweep"), _k1_calls(k1_calls, "plane_sweep"):
+            rec = PlaneSweepReconstructor(camera, cfg.plane_sweep, device=device)
+            out = rec.reconstruct(
+                images, poses, sparse_points=points, return_maps=mesh_from_stereo,
+                host_small=iset.prescaled.get(round(float(cfg.plane_sweep.scale), 6)),
+            )
+            dp, dc = out[:2]
+            if mesh_from_stereo:
+                mesh_maps, mesh_cloud = out[2], (dp, dc)
+                # the stage's per-ref gate min(min_views, #neighbours)
+                # at its global bound
+                j = min(cfg.plane_sweep.num_neighbors, len(poses) - 1)
+                mesh_min_conf = float(min(cfg.plane_sweep.min_views, j))
+        stats["num_stereo_points"] = int(len(dp))
+        if len(dp):
+            save_ply(str(output_dir / "dense_stereo.ply"), dp, dc)
+            print(f"  dense_stereo.ply: {len(dp):,} points")
+
+    if args.mesh and mesh_maps is not None and len(mesh_cloud[0]):
+        from recon3d_tpu_torch.dense.mesh import extract_mesh, mesh_vertex_colors
+        from recon3d_tpu_torch.dense.tsdf import fuse_tsdf
+        from recon3d_tpu_torch.io.ply import save_mesh_ply
+
+        dp, dc = mesh_cloud
+        tsdf_s = {}
+        with timer.stage("tsdf_mesh"):
+            with _k1_calls(k1_calls, "tsdf_mesh"):
+                vol = fuse_tsdf(
+                    mesh_maps["depth"], mesh_maps["conf"],
+                    mesh_maps["K"], mesh_maps["Rs"], mesh_maps["ts"],
+                    sparse_points=dp,
+                    resolution=args.mesh_resolution,
+                    # conf counts NCC-consistent views; weight only
+                    # pixels the stage's own fusion would keep
+                    min_conf=mesh_min_conf,
+                    timings=tsdf_s,
+                    device=device,
                 )
-                dp, dc = out[:2]
-                if want_maps:
-                    mesh_maps, mesh_cloud = out[2], (dp, dc)
-                    # the stage's own fusion gate, min(min_views, J): with
-                    # few views the raw min_views count is unreachable
-                    j = min(cfg.patchmatch.num_source_views, len(poses) - 1)
-                    mesh_min_conf = float(min(cfg.patchmatch.min_views, j))
-            stats["patchmatch_breakdown_s"] = rec.stats
-            stats["num_dense_points"] = int(len(dp))
-            if len(dp):
-                save_ply(str(output_dir / "dense_mvs.ply"), dp, dc)
-                print(f"  dense_mvs.ply: {len(dp):,} points")
+            t_mesh = time.perf_counter()
+            mv, mf = extract_mesh(vol)
+            mc = mesh_vertex_colors(mv, dp, dc)
+            tsdf_s["extract_mesh_s"] = time.perf_counter() - t_mesh
+        stats["tsdf_breakdown_s"] = tsdf_s
+        stats["mesh_vertices"], stats["mesh_faces"] = int(len(mv)), int(len(mf))
+        if len(mf):
+            save_mesh_ply(str(output_dir / "mesh.ply"), mv, mf, mc)
+            print(f"  mesh.ply: {len(mv):,} verts, {len(mf):,} faces")
 
-        if args.stereo:
-            from recon3d_tpu_torch.dense.plane_sweep import PlaneSweepReconstructor
+    if args.dense or args.combined:
+        from recon3d_tpu_torch.dense.sift_dense import DenseSiftReconstructor
 
-            with timer.stage("plane_sweep"), _k1_calls(k1_calls, "plane_sweep"):
-                rec = PlaneSweepReconstructor(camera, cfg.plane_sweep, device=device)
-                out = rec.reconstruct(
-                    images, poses, sparse_points=points, return_maps=mesh_from_stereo,
-                    host_small=iset.prescaled.get(round(float(cfg.plane_sweep.scale), 6)),
-                )
-                dp, dc = out[:2]
-                if mesh_from_stereo:
-                    mesh_maps, mesh_cloud = out[2], (dp, dc)
-                    # the stage's per-ref gate min(min_views, #neighbours)
-                    # at its global bound
-                    j = min(cfg.plane_sweep.num_neighbors, len(poses) - 1)
-                    mesh_min_conf = float(min(cfg.plane_sweep.min_views, j))
-            stats["num_stereo_points"] = int(len(dp))
-            if len(dp):
-                save_ply(str(output_dir / "dense_stereo.ply"), dp, dc)
-                print(f"  dense_stereo.ply: {len(dp):,} points")
-
-        if args.mesh and mesh_maps is not None and len(mesh_cloud[0]):
-            from recon3d_tpu_torch.dense.mesh import extract_mesh, mesh_vertex_colors
-            from recon3d_tpu_torch.dense.tsdf import fuse_tsdf
-            from recon3d_tpu_torch.io.ply import save_mesh_ply
-
-            dp, dc = mesh_cloud
-            tsdf_s = {}
-            with timer.stage("tsdf_mesh"):
-                with _k1_calls(k1_calls, "tsdf_mesh"):
-                    vol = fuse_tsdf(
-                        mesh_maps["depth"], mesh_maps["conf"],
-                        mesh_maps["K"], mesh_maps["Rs"], mesh_maps["ts"],
-                        sparse_points=dp,
-                        resolution=args.mesh_resolution,
-                        # conf counts NCC-consistent views; weight only
-                        # pixels the stage's own fusion would keep
-                        min_conf=mesh_min_conf,
-                        timings=tsdf_s,
-                        device=device,
-                    )
-                t_mesh = time.perf_counter()
-                mv, mf = extract_mesh(vol)
-                mc = mesh_vertex_colors(mv, dp, dc)
-                tsdf_s["extract_mesh_s"] = time.perf_counter() - t_mesh
-            stats["tsdf_breakdown_s"] = tsdf_s
-            stats["mesh_vertices"], stats["mesh_faces"] = int(len(mv)), int(len(mf))
-            if len(mf):
-                save_mesh_ply(str(output_dir / "mesh.ply"), mv, mf, mc)
-                print(f"  mesh.ply: {len(mv):,} verts, {len(mf):,} faces")
-
-    timer.report()
-    if args.stats_json:
-        stats["stage_times_s"] = timer.as_dict()
-        stats["num_sparse_points"] = int(len(points))
-        stats["k1_calls_by_stage"] = k1_calls
-        stats["device"] = (torch.cuda.get_device_name(device)
-                           if device.type == "cuda" else "cpu")
-        with open(args.stats_json, "w") as f:
-            json.dump(stats, f, indent=2, default=float)
-        print(f"  stats -> {args.stats_json}")
-    print(f"DONE. Results in {output_dir}")
-    return 0
+        with timer.stage("dense_sift"):
+            rec = DenseSiftReconstructor(camera, cfg.dense_sift, device=device)
+            dp, dc = rec.reconstruct(images, poses)
+        stats["dense_sift_breakdown"] = rec.stats
+        stats["num_dense_sift_points"] = int(len(dp))
+        if len(dp):
+            save_ply(str(output_dir / "dense.ply"), dp, dc)
+            print(f"  dense.ply: {len(dp):,} points")
+    return stats, points
 
 
 if __name__ == "__main__":

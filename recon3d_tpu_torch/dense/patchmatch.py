@@ -408,10 +408,11 @@ class PatchMatchMVS:
     `poses` a dict {idx: (R, t)} of registered cameras (numpy). Runs on
     `device` ("cuda" unless the caller asks for "cpu").
 
-    Ported: the single-device path without checkpoints of
-    recon3d_tpu/dense/patchmatch.py:476-614, with its return_maps branch
-    (the depth and confidence maps the TSDF mesh stage fuses). The mesh and
-    checkpoint branches are not ported yet.
+    Ported: the single-device paths of recon3d_tpu/dense/patchmatch.py:
+    476-667, with and without a checkpointer, and the return_maps branch
+    (the depth and confidence maps the TSDF mesh stage fuses). The `mesh=`
+    branch over several devices is not ported yet (ROADMAP.md, section 1,
+    item 12).
     """
 
     def __init__(self, camera: Camera, config: Optional[PatchMatchConfig] = None,
@@ -427,13 +428,17 @@ class PatchMatchMVS:
         poses: Dict[int, Tuple[np.ndarray, np.ndarray]],
         sparse_points: Optional[np.ndarray] = None,
         views_per_batch: int = 4,
+        checkpointer=None,
         return_maps: bool = False,
         host_small: Optional[np.ndarray] = None,
     ):
         """With return_maps=True, returns (points, colors, maps) where maps
-        carries the per-view depth and confidence maps, still on the
-        device, and their geometry: the input of the TSDF mesh stage
-        (dense/tsdf.py).
+        carries the per-view depth and confidence maps, on the device, and
+        their geometry: the input of the TSDF mesh stage (dense/tsdf.py).
+
+        checkpointer: a runtime.checkpoint.StageCheckpointer. Views whose
+        maps it holds are loaded, the others computed and saved one batch
+        at a time, and the fused cloud is the one a run without it gives.
 
         host_small: optional (N, H*scale, W*scale, 3) prescaled color
         stack indexed like `images` (ImageSet.small_color)."""
@@ -486,16 +491,22 @@ class PatchMatchMVS:
         ranges = np.asarray(ranges, np.float32)
         t_prep = time.time() - t0
 
-        batch_d: List[torch.Tensor] = []
-        batch_c: List[torch.Tensor] = []
-        for _, out in self._depth_batches(
-            list(range(V)), ids, grays, sources, Rs, ts, ranges, K, row,
-            views_per_batch,
-        ):
-            batch_d.append(out.depth)
-            batch_c.append(out.confidence)
-        depth_all = torch.cat(batch_d, dim=0)
-        conf_all = torch.cat(batch_c, dim=0)
+        if checkpointer is None:
+            # maps stay on the device through fusion
+            batch_d: List[torch.Tensor] = []
+            batch_c: List[torch.Tensor] = []
+            for _, out in self._depth_batches(
+                list(range(V)), ids, grays, sources, Rs, ts, ranges, K, row,
+                views_per_batch,
+            ):
+                batch_d.append(out.depth)
+                batch_c.append(out.confidence)
+            depth_all = torch.cat(batch_d, dim=0)
+            conf_all = torch.cat(batch_c, dim=0)
+        else:
+            depth_all, conf_all = self._checkpointed_maps(
+                checkpointer, ids, grays, sources, Rs, ts, ranges, K, row,
+                views_per_batch)
         _sync(dev)
         pts, cols = self._fuse_and_filter(
             depth_all, conf_all, K, Rs, ts, small, row, ids, t0, t_prep, V
@@ -504,6 +515,43 @@ class PatchMatchMVS:
             return pts, cols, {"depth": depth_all, "conf": conf_all, "K": K,
                                "Rs": Rs, "ts": ts, "ids": list(ids)}
         return pts, cols
+
+    def _checkpointed_maps(self, checkpointer, ids, grays, sources, Rs, ts, ranges,
+                           K, row, views_per_batch):
+        """(depth, confidence) of every view, stacked on the device: the
+        maps the checkpointer holds are loaded, the others computed, pulled
+        to the host and saved batch by batch (recon3d_tpu/dense/
+        patchmatch.py:567-580, 643-655, 661-667).
+
+        A view runs in the batch a run without checkpoints gives it, with
+        the same companions (a companion whose map was loaded is computed
+        again and its result dropped): on the card a view run in a batch of
+        another size does not reproduce its map bit for bit (PatchMatch is
+        chaotic at 1e-3), on the CPU it does."""
+        V = len(ids)
+        loaded: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        for v, i in enumerate(ids):
+            dc = checkpointer.load_depth(i)
+            if dc is not None:
+                loaded[v] = dc
+        if loaded:
+            print(f"[patchmatch] resumed {len(loaded)}/{V} depth maps from checkpoint")
+        run = [v for b0 in range(0, V, views_per_batch)
+               if any(u not in loaded for u in range(b0, min(b0 + views_per_batch, V)))
+               for v in range(b0, min(b0 + views_per_batch, V))]
+        maps = dict(loaded)
+        for pos, out in self._depth_batches(run, ids, grays, sources, Rs, ts, ranges,
+                                            K, row, views_per_batch):
+            d_np = out.depth.cpu().numpy()
+            c_np = out.confidence.cpu().numpy()
+            for r, v in enumerate(pos):
+                if v not in loaded:
+                    maps[v] = (d_np[r], c_np[r])
+                    checkpointer.save_depth(ids[v], d_np[r], c_np[r])
+        dev = self.device
+        depth_all = torch.from_numpy(np.stack([maps[v][0] for v in range(V)])).to(dev)
+        conf_all = torch.from_numpy(np.stack([maps[v][1] for v in range(V)])).to(dev)
+        return depth_all, conf_all
 
     def _depth_batches(self, positions, ids, grays, sources, Rs, ts, ranges, K,
                        row, views_per_batch):

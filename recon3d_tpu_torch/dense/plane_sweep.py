@@ -20,7 +20,11 @@ What changes against the JAX version:
   - the JAX module's windowed NCC (`_ncc`) is ops/ncc.ncc_windowed, the
     same masked moments;
   - the view-sharded path over several devices is not ported (ROADMAP.md,
-    section 1, item 12), nor is `create_combined_dense_cloud` (item 8).
+    section 1, item 12).
+
+`create_combined_dense_cloud` is the JAX package's library wrapper around
+the sweep; the CLI's --combined does not call it (it runs the sweep and
+dense SIFT, cli.py).
 
 The fusion helpers `backproject_depth`, `fused_points_compact`,
 `depth_range_from_poses` and `depth_range_from_sparse` serve PatchMatch too.
@@ -424,3 +428,17 @@ class PlaneSweepReconstructor:
             }
             return points, colors, maps
         return points, colors
+
+
+def create_combined_dense_cloud(
+    camera: Camera,
+    images: np.ndarray,
+    poses: Dict[int, Tuple[np.ndarray, np.ndarray]],
+    use_stereo: bool = True,
+    device="cuda",
+):
+    """API-parity wrapper (reference dense_stereo.py:495-505): run the
+    plane-sweep backend, or return empty arrays when disabled."""
+    if use_stereo:
+        return PlaneSweepReconstructor(camera, device=device).reconstruct(images, poses)
+    return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.uint8)

@@ -265,6 +265,14 @@ def _match_verify_batch(
     return m.idx2, m.mask & res.inliers, res.F, res.num_inliers, m.num_matches
 
 
+def match_capacity(valid: np.ndarray) -> int:
+    """The capacity C that match_pairs_batched compacts (V, K) features to:
+    the smallest power of 2, at least 256, that holds every image's valid
+    keypoints, and at most K."""
+    n = int(valid.sum(1).max()) if valid.size else 0
+    return min(1 << max(8, int(np.ceil(np.log2(max(1, n))))), valid.shape[1])
+
+
 def match_pairs_batched(
     features,                 # stacked SiftFeatures or a list of per-image ones
     pairs: Sequence[Tuple[int, int]],
@@ -296,10 +304,7 @@ def match_pairs_batched(
     valid_np = features.valid.cpu().numpy()
     tm["valid_fetch_s"] = time.time() - _t
     _t = time.time()
-    counts = valid_np.sum(1).astype(int)
-    K = valid_np.shape[1]
-    C = 1 << max(8, int(np.ceil(np.log2(max(1, counts.max())))))
-    C = min(C, K)
+    C = match_capacity(valid_np)
     # stable compaction: valid entries first, remember original indices
     order = np.argsort(~valid_np, axis=1, kind="stable")[:, :C]  # (V, C)
     od = torch.from_numpy(order).to(dev)

@@ -116,6 +116,17 @@ def distort_points(norm_xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     return torch.stack([xd, yd], dim=-1)
 
 
+def undistort_points(
+    norm_xy_dist: torch.Tensor, dist: torch.Tensor, iterations: int = 8
+) -> torch.Tensor:
+    """Invert the distortion model by fixed-point iteration (cv.undistortPoints
+    uses the same scheme)."""
+    xy = norm_xy_dist
+    for _ in range(iterations):
+        xy = xy + (norm_xy_dist - distort_points(xy, dist))
+    return xy
+
+
 def undistort_image(img: torch.Tensor, K: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     """Undistort so the pinhole model holds exactly afterwards (cv.undistort
     with an identical camera matrix): each target pixel samples the source

@@ -1,8 +1,9 @@
 """End-to-end: the port's CLI against the JAX CLI on rendered views: SfM
-(`images --fast`, with --export-colmap and --stats-json) on the 5 views of
-tests/test_cli.py, `images --mvs --mesh --stereo` on the port alone, and
-`--mvs` / `--stereo --mesh` with `--from-colmap` and a COLMAP model made
-from the ground-truth poses."""
+(`images --fast`, with --export-colmap, --stats-json and --checkpoint-dir)
+on the 5 views of tests/test_cli.py, `images --mvs --mesh --stereo` on the
+port alone, and `--mvs`, `--stereo --mesh`, `--dense` and `--combined` with
+`--from-colmap` and a COLMAP model made from the ground-truth poses, with
+PatchMatch's depth checkpoints and --profile."""
 
 import json
 from pathlib import Path
@@ -74,10 +75,7 @@ def test_cli_mvs_from_colmap_matches_jax_cli(colmap_scene, tmp_path):
     assert set(s["stage_times_s"]) == {"sparse_sfm", "patchmatch_mvs"}
 
 
-@pytest.mark.parametrize("flags", [
-    ["--dense"], ["--neural"], ["--global-sfm"], ["--combined"], ["--profile", "trace"],
-    ["--checkpoint-dir", "ck"], ["--devices", "2"],
-])
+@pytest.mark.parametrize("flags", [["--neural"], ["--global-sfm"], ["--devices", "2"]])
 def test_unported_modes_exit_nonzero(colmap_scene, tmp_path, flags, capsys):
     img_dir, model = colmap_scene
     argv = [img_dir, "--mvs", "--output", str(tmp_path / "o"), "--device", "cpu", *flags,
@@ -247,3 +245,123 @@ def test_device_flag(colmap_scene, tmp_path):
     img_dir, model = colmap_scene
     with pytest.raises(RuntimeError, match="cuda"):
         main([img_dir, "--from-colmap", model, "--output", str(tmp_path / "o")])
+
+
+# ---------------------------------------------------------------------------
+# Dense SIFT (--dense, --combined), checkpoints and the trace
+
+
+@pytest.fixture(scope="module")
+def jax_combined(colmap_scene, tmp_path_factory):
+    """The JAX CLI's `--combined --from-colmap`: the plane sweep and dense
+    SIFT, on one device."""
+    img_dir, model = colmap_scene
+    out = tmp_path_factory.mktemp("torch_cli_combined") / "jax"
+    assert jax_main([img_dir, "--combined", "--from-colmap", model, "--output", str(out),
+                     "--devices", "1"]) == 0
+    return out
+
+
+@pytest.mark.parametrize("flag", ["--dense", "--combined"])
+def test_cli_dense_sift_matches_jax_cli(colmap_scene, jax_combined, flag, tmp_path):
+    """--dense writes dense.ply (dense SIFT) and --combined writes it beside
+    dense_stereo.ply (the sweep), as the JAX CLI does; point counts within
+    0.8-1.25 of the JAX CLI's, and the clouds near the true surfaces."""
+    img_dir, model = colmap_scene
+    out, stats = tmp_path / "torch", tmp_path / "s.json"
+    assert main([img_dir, flag, "--from-colmap", model, "--output", str(out),
+                 "--device", "cpu", "--stats-json", str(stats)]) == 0
+    s = json.loads(stats.read_text())
+    names = ["dense.ply"] + (["dense_stereo.ply"] if flag == "--combined" else [])
+    assert set(s["stage_times_s"]) == {"sparse_sfm", "dense_sift"} | (
+        {"plane_sweep"} if flag == "--combined" else set())
+    assert not (out / "dense_mvs.ply").exists()
+    assert (out / "dense_stereo.ply").exists() == (flag == "--combined")
+    for name in names:
+        pt, ct = load_ply(str(out / name))
+        pj, _ = load_ply(str(jax_combined / name))
+        assert 0.8 <= len(pt) / len(pj) <= 1.25, (name, len(pt), len(pj))
+        assert ct.shape == pt.shape and np.isfinite(pt).all()
+        med, _ = surface_gate(pt)
+        assert med < 0.4, (name, med)
+    dense, _ = load_ply(str(out / "dense.ply"))
+    assert s["num_dense_sift_points"] == len(dense)
+    st = s["dense_sift_breakdown"]
+    assert st["pairs"] == 15 and st["capacity"] >= 256 and st["knn_path"] in ("native", "scipy")
+    if flag == "--combined":
+        assert s["k1_calls_by_stage"]["plane_sweep"]["plain"] > 0
+
+
+def test_cli_checkpoint_resume(sfm_scene, tmp_path):
+    """tests/test_cli.py::test_cli_checkpoint_resume on the port: the second
+    run restores the sparse state instead of running SfM."""
+    img_dir, _ = sfm_scene
+    out1, ck = tmp_path / "r1", tmp_path / "ckpt"
+    assert main([img_dir, "--fast", "--output", str(out1), "--checkpoint-dir", str(ck),
+                 "--device", "cpu"]) == 0
+    assert (ck / "sparse_state.npz").exists()
+    pts1, _ = load_ply(str(out1 / "sparse.ply"))
+
+    out2, stats = tmp_path / "r2", tmp_path / "s.json"
+    assert main([img_dir, "--fast", "--output", str(out2), "--checkpoint-dir", str(ck),
+                 "--device", "cpu", "--stats-json", str(stats)]) == 0
+    pts2, _ = load_ply(str(out2 / "sparse.ply"))
+    np.testing.assert_allclose(pts1, pts2, atol=1e-5)
+    np.testing.assert_array_equal(np.load(out1 / "poses.npz")["Rs"],
+                                  np.load(out2 / "poses.npz")["Rs"])
+    assert "extract_time" not in json.loads(stats.read_text())   # SfM did not run
+
+
+def test_cli_restores_a_jax_sparse_checkpoint(sfm_scene, tmp_path):
+    """A sparse checkpoint the JAX CLI wrote restores in the port's CLI:
+    the JAX run's sparse.ply and poses come back."""
+    img_dir, _ = sfm_scene
+    ck = tmp_path / "ckpt"
+    assert jax_main([img_dir, "--fast", "--seed", "1", "--output", str(tmp_path / "jax"),
+                     "--devices", "1", "--checkpoint-dir", str(ck)]) == 0
+    assert main([img_dir, "--fast", "--output", str(tmp_path / "torch"),
+                 "--checkpoint-dir", str(ck), "--device", "cpu"]) == 0
+    a, _ = load_ply(str(tmp_path / "torch" / "sparse.ply"))
+    b, _ = load_ply(str(tmp_path / "jax" / "sparse.ply"))
+    np.testing.assert_array_equal(a, b)
+    pa, pb = np.load(tmp_path / "torch" / "poses.npz"), np.load(tmp_path / "jax" / "poses.npz")
+    for k in ("image_ids", "Rs", "ts"):
+        np.testing.assert_array_equal(pa[k], pb[k])
+
+
+def test_cli_mvs_depth_checkpoints_resume(colmap_scene, tmp_path):
+    """--mvs --from-colmap --checkpoint-dir: the model's poses skip the
+    sparse checkpoint (as in the JAX CLI); a rerun after two of the six
+    depth maps are lost recomputes them and writes the same dense_mvs.ply."""
+    img_dir, model = colmap_scene
+    ck = tmp_path / "ck"
+    argv = [img_dir, "--mvs", "--from-colmap", model, "--checkpoint-dir", str(ck),
+            "--device", "cpu"]
+    assert main(argv + ["--output", str(tmp_path / "r1")]) == 0
+    assert not (ck / "sparse_state.npz").exists()
+    maps = sorted((ck / "depth_maps").iterdir())
+    assert len(maps) == 6
+    for m in maps[2:4]:
+        m.unlink()
+    assert main(argv + ["--output", str(tmp_path / "r2")]) == 0
+    a, ca = load_ply(str(tmp_path / "r1" / "dense_mvs.ply"))
+    b, cb = load_ply(str(tmp_path / "r2" / "dense_mvs.ply"))
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ca, cb)
+    assert len(sorted((ck / "depth_maps").iterdir())) == 6
+
+
+def test_cli_profile_writes_a_trace(colmap_scene, tmp_path, capsys):
+    """--profile on the CPU: a torch.profiler Chrome trace of the run (CPU
+    activity: the CPU build refuses CUDA activity) that loads as JSON."""
+    from recon3d_tpu_torch.runtime.profiling import TRACE_NAME
+
+    img_dir, model = colmap_scene
+    prof = tmp_path / "prof"
+    assert main([img_dir, "--stereo", "--from-colmap", model, "--output", str(tmp_path / "o"),
+                 "--device", "cpu", "--profile", str(prof)]) == 0
+    assert f"[profile] device trace written to {prof}" in capsys.readouterr().out
+    trace = json.loads((prof / TRACE_NAME).read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    assert (tmp_path / "o" / "dense_stereo.ply").exists()

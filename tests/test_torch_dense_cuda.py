@@ -1,5 +1,7 @@
-"""The dense stages that reuse K1 (TSDF fusion, the plane sweep) on the card
-against the same code on the CPU, where K1 runs its plain version.
+"""The dense stages on the card against the same code on the CPU, where K1
+runs its plain version: the stages that reuse K1 (TSDF fusion, the plane
+sweep, PatchMatch's checkpoint branch, undistortion at load), and dense
+SIFT.
 
 Every test here is marked `cuda` and skips without a GPU. The file imports
 neither jax nor the JAX package, so it also runs on a GPU machine without
@@ -25,10 +27,17 @@ if _HERE not in [str(Path(p).resolve()) for p in getattr(sys.modules.get("tests"
     sys.modules["tests"].__path__ = [_HERE]
 
 from recon3d_tpu_torch.camera import Camera  # noqa: E402
-from recon3d_tpu_torch.config import PlaneSweepConfig  # noqa: E402
-from recon3d_tpu_torch.dense import plane_sweep, tsdf  # noqa: E402
+from recon3d_tpu_torch.config import (  # noqa: E402
+    DenseSiftConfig,
+    PatchMatchConfig,
+    PlaneSweepConfig,
+)
+from recon3d_tpu_torch.dense import plane_sweep, sift_dense, tsdf  # noqa: E402
+from recon3d_tpu_torch.dense.patchmatch import PatchMatchMVS  # noqa: E402
+from recon3d_tpu_torch.runtime.checkpoint import StageCheckpointer  # noqa: E402
 from recon3d_tpu_torch.kernels import warp  # noqa: E402
 from tests.render import render_views  # noqa: E402
+from tests.torch_scene import surface_gate  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +116,81 @@ def test_plane_sweep_reconstructor_on_the_card(cuda_device, scene):
     Xc = pts @ scene["Rs"][2].T + scene["ts"][2]
     assert (Xc[:, 2] > 0).mean() > 0.95
     assert maps["depth"].device.type == "cuda" and maps["conf"].device.type == "cuda"
+
+
+def test_dense_sift_card_matches_cpu(cuda_device):
+    """DenseSiftReconstructor on the card and on the CPU, on the scene of
+    tests/test_dense_sift.py, by outcome (their RANSAC draws differ):
+    point counts within 0.8-1.25 of each other, and both at that test's
+    gate, median distance to the true surfaces under 0.05."""
+    scene = render_views(n_views=4, image_size=(128, 160), arc_step=0.15)
+    poses = {i: (scene["Rs"][i], scene["ts"][i]) for i in range(4)}
+    cfg = DenseSiftConfig(max_features=2048, min_parallax_deg=0.3)
+    clouds = []
+    for dev in ("cpu", cuda_device):
+        rec = sift_dense.DenseSiftReconstructor(Camera.from_matrix(scene["K"]), cfg, device=dev)
+        pts, cols = rec.reconstruct(scene["images"], poses)
+        assert len(pts) > 200 and cols.shape == pts.shape
+        assert surface_gate(pts)[0] < 0.05
+        clouds.append(pts)
+    assert 0.8 <= len(clouds[1]) / len(clouds[0]) <= 1.25, [len(c) for c in clouds]
+
+
+def test_checkpoint_resume_on_the_card_is_bit_for_bit(cuda_device, tmp_path):
+    """tests/test_torch_checkpoint.py's kill-and-resume on the card, against
+    the card's own run without checkpoints: the checkpointed run, the
+    resume after views 3 and 4 are lost and the fully checkpointed rerun
+    give the same cloud, bit for bit, and only the resume launches K1."""
+    scene = render_views(n_views=5, image_size=(96, 128), arc_step=0.12)
+    poses = {i: (scene["Rs"][i], scene["ts"][i]) for i in range(5)}
+    cfg = PatchMatchConfig(scale=1.0, num_iterations=2, patch_size=7, min_views=3,
+                           voxel_size=0.01)
+    rec = PatchMatchMVS(Camera.from_matrix(scene["K"]), cfg, device=cuda_device)
+    p_fresh, c_fresh = rec.reconstruct(scene["images"], poses)
+    ck = StageCheckpointer(str(tmp_path))
+    runs = [rec.reconstruct(scene["images"], poses, checkpointer=ck)]
+    for i in (3, 4):
+        Path(ck.depth_path(i)).unlink()
+    warp.counts.reset()
+    runs.append(rec.reconstruct(scene["images"], poses, checkpointer=ck))
+    assert warp.counts.kernel > 0 and warp.counts.plain == 0
+    warp.counts.reset()
+    runs.append(rec.reconstruct(scene["images"], poses, checkpointer=ck))
+    assert warp.counts.kernel == 0
+    assert len(p_fresh) > 500
+    for p, c in runs:
+        np.testing.assert_array_equal(p, p_fresh)
+        np.testing.assert_array_equal(c, c_fresh)
+
+
+def test_undistortion_at_load_card_matches_cpu(cuda_device, tmp_path):
+    """Distorted 480x640 inputs: load_image_set undistorts their 3 colour
+    planes a view through K1's `shared` variant on the card; the images
+    agree with the CPU's to one uint8 level on at most 0.5% of the values
+    (tests/test_torch_io.py's bound against the JAX loader), and
+    undistort_points agrees to 1e-6."""
+    from PIL import Image
+
+    from recon3d_tpu_torch.io.dataset import load_image_set
+    from recon3d_tpu_torch.ops.image import distort_points, undistort_points
+
+    scene = render_views(n_views=2, image_size=(480, 640), arc_step=0.1)
+    for i, img in enumerate(scene["images"]):
+        Image.fromarray((img * 255).astype(np.uint8)).save(tmp_path / f"v_{i:02d}.png")
+    dist = np.float32([-0.15, 0.04, 0.002, -0.001, 0.0])
+    cam = Camera.from_matrix(scene["K"], dist)
+    cpu = load_image_set(str(tmp_path), cam, device="cpu")
+    warp.counts.reset()
+    card = load_image_set(str(tmp_path), cam, device=cuda_device)
+    assert warp.counts.kernel == 1 and warp.counts.plain == 0
+    assert warp.counts.by_variant.get("shared", 0) == 1, dict(warp.counts.by_variant)
+    diff = np.abs(card.color - cpu.color)
+    assert diff.max() <= 1.0 / 255 + 1e-6
+    assert (diff > 1e-6).mean() <= 0.005
+
+    xy = torch.from_numpy(np.float32(np.random.default_rng(2).uniform(-0.4, 0.4, (4096, 2))))
+    d = torch.from_numpy(dist)
+    und_c = undistort_points(distort_points(xy, d), d)
+    und_g = undistort_points(distort_points(xy.to(cuda_device), d.to(cuda_device)),
+                             d.to(cuda_device))
+    np.testing.assert_allclose(und_g.cpu().numpy(), und_c.numpy(), rtol=0, atol=1e-6)

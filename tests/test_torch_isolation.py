@@ -37,6 +37,19 @@ Kn = np.float32([[30, 0, 15.5], [0, 30, 11.5], [0, 0, 1]])
 vol = fuse_tsdf(d, None, Kn, np.stack([np.eye(3)] * 2).astype(np.float32),
                 np.float32([[0, 0, 0], [0.05, 0, 0]]), resolution=16, device="cpu")
 assert vol.tsdf.shape == (16, 16, 16) and len(extract_mesh(vol)[1]) > 0
+import tempfile
+from recon3d_tpu_torch import *
+from recon3d_tpu_torch.dense.sift_dense import dense_pairs
+from recon3d_tpu_torch.dense.filters import bbox_voxel_downsample, knn_statistical_filter
+from recon3d_tpu_torch.runtime.checkpoint import StageCheckpointer
+from recon3d_tpu_torch.runtime.profiling import maybe_trace
+assert len(dense_pairs(50, 8)) == 400
+pts = np.random.default_rng(0).random((200, 3)).astype(np.float32)
+assert 0 < len(bbox_voxel_downsample(*knn_statistical_filter(pts, None))[0]) <= 200
+with tempfile.TemporaryDirectory() as tmp:
+    StageCheckpointer(tmp).save_depth(0, d[0], d[0])
+    with maybe_trace(tmp, "cpu"):
+        torch.ones(3).sum()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "recon3d_tpu"
              or m.startswith("recon3d_tpu."))

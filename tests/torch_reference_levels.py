@@ -50,6 +50,13 @@ state. Runs on the CPU in a few minutes:
    for the port and for the JAX sweep on images scaled by 1 + 2^-22, and
    how far one plane's windowed NCC moves between the JAX and the port
    warp of the same source (the float32 rounding of the homography).
+12. Dense SIFT: the JAX CLI's `--dense --from-colmap` with the COLMAP model
+   of the true poses on the north-star PNGs, its first 16 views (`12 full`:
+   all 50): dense.ply on the surface gate, its size and the stage time.
+   `12 full model=DIR` takes the COLMAP model in DIR instead (the port's
+   SfM cameras, as chip_smoke.py's dense_sift phase uses them) and carries
+   the cloud into the scene's frame (tests/torch_scene.to_scene_frame): the
+   level of that phase. `12 port` runs the port's CLI on the CPU beside it.
 
     JAX_PLATFORMS=cpu python tests/torch_reference_levels.py 4 5   # parts 4 and 5 only
 """
@@ -269,6 +276,54 @@ def stereo_levels():
                                       "mesh_faces": len(faces)}), flush=True)
 
 
+def dense_sift_levels(n_views: int, model_dir=None, with_port: bool = False):
+    import json
+    import resource
+    import tempfile
+    import time
+
+    from recon3d_tpu.cli import main as jax_cli
+    from recon3d_tpu.io.colmap import save_colmap_text
+    from recon3d_tpu.io.ply import load_ply
+    from tests.torch_scene import to_scene_frame
+
+    scene = render_views(**NORTH_STAR)
+    print(f"12. JAX CLI `--dense --from-colmap` ({model_dir or 'true poses'}) on the first "
+          f"{n_views} views of the north-star scene (CPU)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        names = _write_pngs(scene, tmp / "images")
+        poses = {i: (scene["Rs"][i], scene["ts"][i]) for i in range(len(names))}
+        save_colmap_text(str(tmp / "model"), scene["K"], NORTH_STAR["image_size"], poses,
+                         sparse_from_depth(scene, per_view=100), None, names=names)
+        from recon3d_tpu_torch.cli import main as port_cli
+
+        argv = [str(tmp / "images"), "--dense", "--from-colmap", str(model_dir or tmp / "model"),
+                "--max-images", str(n_views)]
+        runs = [("jax ", jax_cli, ["--devices", "1"])]
+        if with_port:
+            runs.append(("port", port_cli, ["--device", "cpu"]))
+        for name, cli, extra in runs:
+            out = tmp / name.strip()
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli(argv + extra + ["--output", str(out), "--stats-json", str(out) + ".json"])
+            st = json.loads(Path(str(out) + ".json").read_text())
+            pts, _ = load_ply(str(out / "dense.ply"))
+            if model_dir:
+                p = np.load(out / "poses.npz")
+                pts = to_scene_frame(pts, {int(i): (R, t) for i, R, t in
+                                           zip(p["image_ids"], p["Rs"], p["ts"])}, scene)
+            med, share = surface_gate(pts)
+            print(f"  {name}: " + json.dumps({
+                "views": n_views, "dense_points": len(pts), "median": round(med, 4),
+                "share": round(share, 4),
+                "stage_times_s": {k: round(v, 1) for k, v in st["stage_times_s"].items()},
+                "host_seconds": round(time.time() - t0, 1),
+                "max_rss_gb": round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6, 2)}),
+                flush=True)
+
+
 RESCUE_SCENE = dict(n_views=20, image_size=(480, 640), arc_step=0.06,
                     arc_offset=(19 / 2 - 49 / 2) * 0.06)
 
@@ -417,7 +472,11 @@ def sift_self_agreement():
 def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
-    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11"}
+    parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11",
+                                  "12"}
+    if "12" in parts:
+        model = next((a[len("model="):] for a in parts if a.startswith("model=")), None)
+        dense_sift_levels(50 if "full" in parts else 16, model, "port" in parts)
     if "11" in parts:
         plane_sweep_agreement()
     if "10" in parts:
