@@ -1,13 +1,14 @@
 """Smoke test of the PyTorch/CUDA port (recon3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # 5 to 10 minutes on an H100, by the host
+    python3 chip_smoke.py    # 9 to 13 minutes on an H100, by the host
 
 Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port, from csrc/, with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     every shape the main path gives it (K1 at the 13 shapes of its three
-     call sites: PatchMatch, the TSDF lookup, the plane sweep), bit for bit
+     every shape the main paths give it (K1 at the 14 shapes of its four
+     call sites: PatchMatch, the TSDF lookup, the plane sweep, SuperPoint's
+     descriptor sampling), bit for bit
      in every variant its launch planner can pick there, with times (each
      variant, the plain version, one library call as a yardstick) and the
      least time the card could take; the TSDF shape once more with one
@@ -60,7 +61,24 @@ Phases, each of which passes or raises:
      views of 65,536 random unit descriptors over dense_pairs(16, 8), with
      the JAX package's chunk of 64 pairs and with the chunk
      sift_dense.pair_chunk picks from the free memory: the peak of device
-     memory, or the out-of-memory error.
+     memory, or the out-of-memory error;
+ 15. global_sfm: SfMPipeline.reconstruct_global() on the north-star PNGs
+     with the scene's K, cold and warm, gated at the JAX reference's level
+     (GLOBAL_SFM_GATE); the CLI's `IMAGES --global-sfm --mvs`, its K1
+     counts set to 0 just before and read just after, the dense cloud at
+     GLOBAL_DENSE_GATE; the global solve's stages once more under the
+     profiler;
+ 16. neural: (a) the CLI's `IMAGES --neural --mvs` (SuperPoint with the
+     bundled weights, the nn matcher) with its K1 counts set to 0 just
+     before and read just after: 50 launches at SuperPoint's shape and
+     PatchMatch's, gated at NEURAL_SPARSE_GATE and CLI_DENSE_GATE; (b)
+     SfMPipeline(neural_mode=True) with matcher="lightglue" (the bundled
+     checkpoint at full width) on the first LIGHTGLUE_VIEWS views, gated at
+     LIGHTGLUE_GATE; (c) one match_pairs_batched chunk of 8 pairs at 2,048
+     keypoints: ms a pair, peak memory, and LightGlue's operations against
+     the card's float32 peak.
+
+Every phase's wall time is printed, and their total, before the JSON lines.
 
 Prints the kernel table as one JSON line, then the card line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero, printing no
@@ -173,6 +191,36 @@ RESCUE_SCENE = dict(n_views=20, image_size=(480, 640), arc_step=0.06,
                     arc_offset=(19 / 2 - 49 / 2) * 0.06)
 RESCUE_SEEDS = range(8)
 RESCUE_JAX = 6
+# Gates of the global_sfm phase. The JAX reference's global SfM on the same
+# PNGs with the scene's K, on the CPU (tests/torch_reference_levels.py part
+# 13), registers 50 of 50 at 0.4956 px, but its cameras stand off the true
+# ones: after the similarity alignment a mean rotation error of 13.32 deg
+# and a mean centre error of 0.6957, and its `--mvs` cloud, carried into the
+# scene's frame by those cameras, lands at median 4.4566 and share 0.0387
+# (CLI_DENSE_GATE fails the reference itself). The port is held to that
+# level: all but 3 cameras, reprojection under 1.5 px (the quality gate of
+# SFM_SPARSE_GATE), pose errors under 1.5 times the reference's, and the
+# dense cloud at 1.5 times its median and two thirds of its share.
+GLOBAL_SFM_GATE = {"min_cameras": 47, "mean_reproj_px": 1.5,
+                   "mean_rot_err_deg": 20.0, "mean_center_err": 1.05}
+GLOBAL_DENSE_GATE = (6.7, 0.025)
+# Gates of the neural CLI run (`IMAGES --neural --mvs`, the default
+# NeuralConfig: SuperPoint at 2,048 keypoints, the nn matcher). The JAX CLI
+# on the same PNGs on the CPU (part 14) registers 50 of 50 at 1.9514 px,
+# mean rotation error 0.3707 deg, mean centre error 0.0092, and its dense
+# cloud reaches 0.2665 / 0.3744, within CLI_DENSE_GATE, which therefore
+# holds. The reprojection limit stands 25% beyond the reference, the pose
+# limits at three times its errors (as SFM_SPARSE_GATE's).
+NEURAL_SPARSE_GATE = {"min_cameras": 47, "mean_reproj_px": 2.44,
+                      "mean_rot_err_deg": 1.11, "mean_center_err": 0.028}
+# The LightGlue run: SfMPipeline(neural_mode=True) with matcher="lightglue"
+# on the first LIGHTGLUE_VIEWS PNGs. The JAX reference there on the CPU
+# (part 15) registers 12 of 12 at 1.6866 px, mean rotation error 1.0794
+# deg, mean centre error 0.0062 (60 pairs kept); the same rule as
+# NEURAL_SPARSE_GATE, with one camera to spare.
+LIGHTGLUE_VIEWS = 12
+LIGHTGLUE_GATE = {"min_cameras": 11, "mean_reproj_px": 2.11,
+                  "mean_rot_err_deg": 3.24, "mean_center_err": 0.0186}
 # The small long-span runs at match_window=2: 12 views of 240x320 on an arc
 # wide enough that probe pairs of span >= 4 fail at load resolution and go
 # to the 2x rematch (on the CPU none of them reaches min_matches there
@@ -207,6 +255,9 @@ K1_SHAPES = [
     ("patchmatch_mvs", 8, 120, 160, 1 * 120 * 160, "fields"),
     ("patchmatch_mvs", 8, 30, 40, 13 * 30 * 40, "fields"),
     ("patchmatch_mvs", 8, 30, 40, 9 * 30 * 40, "fields"),
+    # SuperPoint (neural mode): one image's 256 coarse descriptor planes of
+    # 60x80 sampled at its 2,048 keypoint slots, shared by all planes
+    ("sparse_sfm", 256, 60, 80, 2048, "keypoints"),
 ]
 K1_REPLACES = "recon3d_tpu/ops/warp_pallas.py:98"
 # Floating-point operations of one bilinear sample: 2 floor, 4 fraction
@@ -267,6 +318,10 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
     over the scene's box seen by a north-star camera at the working scale,
     through the port's own projection (dense/tsdf.py); planes of depths in
     [3, 4.5] with 20% holes (0) and of confidence counts 0-4.
+    kind "keypoints": SuperPoint's descriptor sampling. One set of points
+    for all N planes: 2,048 keypoints of a 480x640 image inside its 4-pixel
+    border, in the cells' units, (x + 0.5) / 8 - 0.5; planes of unit
+    descriptors.
     kind "uniform": uniform points over a margin around the image (every
     tap a cache miss of its own), in the coordinate layout of `shared`."""
     dev = "cuda"
@@ -289,6 +344,12 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
         R = torch.stack([x, torch.linalg.cross(z, x), z])
         _, uv = tsdf_view_coords(X, K, R, -R @ C)
         coords = uv[None].contiguous()
+    elif kind == "keypoints":
+        planes = torch.randn((N, H, W), generator=gen, device=dev)
+        planes = planes / torch.linalg.norm(planes, dim=0, keepdim=True)
+        px = 4 + torch.rand((1, M, 2), generator=gen, device=dev) * torch.tensor(
+            [8.0 * W - 9, 8.0 * H - 9], device=dev)
+        coords = (px + 0.5) / 8.0 - 0.5
     else:
         planes = torch.rand((N, H, W), generator=gen, device=dev)
         if kind == "fields":
@@ -382,7 +443,7 @@ def kernel_phase() -> list:
     shapes = []
     for stage, N, H, W, M, kind in K1_SHAPES:
         what = f"{stage}: {N}x{H}x{W} planes, {M} points each"
-        shared = kind == "voxels"
+        shared = kind in ("voxels", "keypoints")
         planes, coords = k1_inputs(N, H, W, M, kind, gen)
         coords_u = k1_inputs(1 if shared else N, H, W, M, "uniform", gen)[1]
         plan = warp.plan_for(planes, coords)
@@ -416,7 +477,7 @@ def kernel_phase() -> list:
               f"(K1/grid_sample {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} "
               f"by {bound['bound_by']} ({100 * bound['bound_ms'] / ms:.0f}% of it)",
               flush=True)
-        if shared:
+        if kind == "voxels":
             one = planes[:1].contiguous()
             n1 = {"ms": cuda_ms(lambda: warp.tent_warp(one, coords), 200),
                   "variant": warp.plan_for(one, coords).variant,
@@ -682,17 +743,33 @@ def sfm_front(work: Path, scene: dict, card: str) -> dict:
     return report
 
 
-class _StageClock:
-    """Wraps methods of one SfMPipeline so that each call is timed to a
-    device sync and records the peak of allocated device memory, summed
-    and maxed by stage name."""
+class _Wrapped:
+    """Wraps named callables of objects, (owner, name) pairs (pipeline
+    methods, module functions), each with self._wrap(name, fn); restore()
+    puts the originals back."""
 
-    def __init__(self, pipe, stages):
-        self.seconds = {s: 0.0 for s in stages}
-        self.peak_bytes = {s: 0 for s in stages}
-        self.calls = {s: 0 for s in stages}
-        for name in stages:
-            setattr(pipe, name, self._wrap(name, getattr(pipe, name)))
+    def __init__(self, targets):
+        self._saved = []
+        for owner, name in targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(name, fn))
+
+    def restore(self) -> None:
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+class _StageClock(_Wrapped):
+    """Each call timed to a device sync, with the peak of allocated device
+    memory, summed and maxed by name."""
+
+    def __init__(self, targets):
+        targets = list(targets)
+        self.seconds = {name: 0.0 for _, name in targets}
+        self.peak_bytes = {name: 0 for _, name in targets}
+        self.calls = {name: 0 for _, name in targets}
+        super().__init__(targets)
 
     def _wrap(self, name, fn):
         def timed(*args, **kwargs):
@@ -706,6 +783,28 @@ class _StageClock:
             self.calls[name] += 1
             return out
         return timed
+
+
+class _StageProfiles(_Wrapped):
+    """Each call under a device-only torch.profiler of its own; the
+    profiles listed by name in self.profs. Device activity only: with the
+    host's operators recorded as well, the back end's hundreds of thousands
+    of launches take minutes to profile."""
+
+    def __init__(self, targets):
+        self.profs = {}
+        super().__init__(targets)
+
+    def _wrap(self, name, fn):
+        from torch.profiler import ProfilerActivity, profile
+
+        def run(*args, **kwargs):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            self.profs.setdefault(name, []).append(prof)
+            return out
+        return run
 
 
 SPARSE_STAGES = ("find_best_initial_pair", "_register_wave", "_triangulate_images",
@@ -726,7 +825,7 @@ def run_sparse(work: Path) -> dict:
     as well, with a device sync around each call (the pipeline's own stage
     times in `stats` include the few milliseconds those syncs cost)."""
     pipe = sparse_pipeline(work)
-    clock = _StageClock(pipe, SPARSE_STAGES)
+    clock = _StageClock((pipe, name) for name in SPARSE_STAGES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     points, colors, poses = pipe.reconstruct(str(work / "images"))
@@ -794,24 +893,8 @@ def sfm_sparse(work: Path, scene: dict, card: str) -> dict:
     # The profiled rerun: every call of a back-end stage under its own
     # profile, summed by stage name, against the warm run's synced stage
     # times (the front end of this run is not profiled: sfm_front did).
-    # Device activity only: with the host's operators recorded as well,
-    # the 200,000 launches of the back end take minutes to profile.
-    from torch.profiler import ProfilerActivity, profile
-
     third = sparse_pipeline(work)
-    profs = {}
-
-    def under(name, fn):
-        def run(*args, **kwargs):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-            profs.setdefault(name, []).append(prof)
-            return out
-        return run
-
-    for name in SPARSE_STAGES:
-        setattr(third, name, under(name, getattr(third, name)))
+    profs = _StageProfiles((third, name) for name in SPARSE_STAGES).profs
     third.reconstruct(str(work / "images"))
     report["profile"] = {
         name: summarize_profiles(profs.get(name, []), clock.seconds[name], f"sfm_sparse {name}")
@@ -1303,6 +1386,278 @@ def rescue_phase(card: str) -> dict:
     return report
 
 
+GLOBAL_FUNCTIONS = ("relative_poses", "rotation_averaging", "_solve_points")
+GLOBAL_METHODS = ("bundle_adjustment_light", "bundle_adjustment_full",
+                  "drop_invalid_observations", "try_recover_images")
+
+
+def check_sparse(st: dict, errs: dict, gate: dict, what: str) -> None:
+    failed = []
+    if st["num_cameras"] < gate["min_cameras"]:
+        failed.append(f"{st['num_cameras']} cameras registered")
+    if not st["mean_reproj_px"] < gate["mean_reproj_px"]:
+        failed.append(f"mean reprojection error {st['mean_reproj_px']:.4f} px")
+    for key in ("mean_rot_err_deg", "mean_center_err"):
+        if not errs[key] < gate[key]:
+            failed.append(f"{key} {errs[key]:.4f}")
+    if failed:
+        raise AssertionError(f"{what} fails its gate {gate}: " + "; ".join(failed))
+
+
+def check_k1_shapes(by_stage: dict, shapes: list, what: str) -> None:
+    """Every K1 launch of a run at a kernel-phase shape, in the variant the
+    planner picks there, and the plain version never."""
+    known = {sh["shape_key"]: sh["variant"] for sh in shapes}
+    for stage, st in by_stage.items():
+        if st["plain"] != 0:
+            raise AssertionError(f"{what}: K1's plain version called in {stage}")
+        off = {k: n for k, n in st["kernel_by_shape"].items() if k not in known}
+        if off:
+            raise AssertionError(f"{what}: K1 launched in {stage} at shapes the kernel "
+                                 f"phase does not hold: {off}")
+        expected = {}
+        for k, n in st["kernel_by_shape"].items():
+            expected[known[k]] = expected.get(known[k], 0) + n
+        if {v: n for v, n in st["kernel_by_variant"].items() if n} != expected:
+            raise AssertionError(f"{what}: K1's variants in {stage} {st['kernel_by_variant']} "
+                                 f"are not the planner's picks {expected}")
+
+
+def cli_sparse_run(work: Path, scene: dict, card: str, name: str, flags) -> dict:
+    """The CLI `IMAGES <flags> --mvs --calibration K --stats-json`, K1's
+    counts set to 0 just before and read just after: the sparse result
+    against the true poses and the dense cloud in the scene's frame."""
+    out, stats_path = work / name, work / f"{name}.json"
+    torch.cuda.synchronize()
+    warp.counts.reset()
+    t0 = time.perf_counter()
+    rc = cli_main([str(work / "images"), *flags, "--mvs", "--calibration",
+                   str(work / "calibration.npz"), "--output", str(out),
+                   "--stats-json", str(stats_path), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = warp.counts.kernel, warp.counts.plain
+    if rc != 0:
+        raise AssertionError(f"{name}: CLI returned {rc}")
+    st = json.loads(stats_path.read_text())
+    poses = read_poses(out / "poses.npz")
+    dense, dcols = load_ply(str(out / "dense_mvs.ply"))
+    if dcols is None or dcols.shape != dense.shape or not np.isfinite(dense).all():
+        raise AssertionError(f"{name}: dense_mvs.ply malformed")
+    sparse, _ = load_ply(str(out / "sparse.ply"))
+    if len(sparse) != st["num_points"] or not np.isfinite(sparse).all():
+        raise AssertionError(f"{name}: sparse.ply malformed")
+    med, share = surface_gate(to_scene_frame(dense, poses, scene))
+    k1 = st["k1_calls_by_stage"]
+    if launches != sum(v["kernel"] for v in k1.values()) or plain_calls != 0:
+        raise AssertionError(f"{name}: K1 launched {launches} times, by stage {k1}, "
+                             f"plain {plain_calls}")
+    return {"phase": name, "card": card, "wall_s": wall,
+            "num_cameras": st["num_cameras"], "num_points": st["num_points"],
+            "num_pairs": st["num_pairs"], "mean_reproj_px": st["mean_reproj_px"],
+            "pose_errors": pose_errors(poses, scene), "stage_times_s": st["stage_times_s"],
+            "sparse_seconds": {k: st[k] for k in ("load_time", "extract_time", "match_time",
+                                                  "total_time", "global_solve_time",
+                                                  "init_time", "incremental_time",
+                                                  "final_ba_time") if k in st},
+            "dense_points": len(dense), "dense_median": med, "dense_share": share,
+            "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1}
+
+
+def global_sfm_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
+    """SfMPipeline.reconstruct_global() on the north-star PNGs, cold and
+    warm (gated at GLOBAL_SFM_GATE, each stage of the global solve timed to
+    a device sync), the CLI's `IMAGES --global-sfm --mvs` (the dense cloud
+    at GLOBAL_DENSE_GATE, K1 by stage), and the global solve's stages once
+    more under a device-only profiler."""
+    from recon3d_tpu_torch.sfm import global_sfm
+
+    def run(instrument):
+        pipe = sparse_pipeline(work)
+        probe = instrument([(global_sfm, f) for f in GLOBAL_FUNCTIONS]
+                           + [(pipe, m) for m in GLOBAL_METHODS])
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            points, colors, poses = pipe.reconstruct_global(str(work / "images"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            probe.restore()
+        return pipe, probe, wall, points, colors, poses
+
+    cold_pipe, _, cold_wall, *_ = run(_StageClock)
+    cold = {k: cold_pipe.stats[k] for k in ("num_cameras", "num_points", "mean_reproj_px",
+                                            "global_solve_time", "total_time")}
+    del cold_pipe
+    pipe, clock, wall, points, colors, poses = run(_StageClock)
+    st = pipe.stats
+    errs = pose_errors(pipe.poses, scene)
+    report = {
+        "phase": "global_sfm", "card": card, "views": N_VIEWS,
+        "num_cameras": st["num_cameras"], "num_points": st["num_points"],
+        "num_pairs": st["num_pairs"], "mean_reproj_px": st["mean_reproj_px"],
+        "unregistered": sorted(set(range(N_VIEWS)) - set(pipe.registered)),
+        "pose_errors": errs, "wall_s": wall, "wall_cold_s": cold_wall,
+        "seconds": {k: st[k] for k in ("load_time", "extract_time", "match_time",
+                                       "global_solve_time", "total_time")},
+        "cold": cold, "stage_seconds_synced": clock.seconds, "stage_calls": clock.calls,
+        "gate": GLOBAL_SFM_GATE,
+    }
+    print(json.dumps(report), flush=True)
+    if not (points.ndim == 2 and points.shape[1] == 3 and np.isfinite(points).all()
+            and colors.shape == points.shape and sorted(poses) == sorted(pipe.registered)):
+        raise AssertionError("global_sfm: points, colours or poses malformed")
+    check_sparse(st, errs, GLOBAL_SFM_GATE, "global_sfm")
+    del pipe
+
+    cli = cli_sparse_run(work, scene, card, "global_sfm_cli", ["--global-sfm"])
+    print(json.dumps(cli), flush=True)
+    check_sparse(cli, cli["pose_errors"], GLOBAL_SFM_GATE, "global_sfm_cli")
+    print(f"[global_sfm_cli] dense_mvs.ply {cli['dense_points']} points, median "
+          f"{cli['dense_median']:.4f} (gate < {GLOBAL_DENSE_GATE[0]}), share "
+          f"{cli['dense_share']:.4f} (gate > {GLOBAL_DENSE_GATE[1]})", flush=True)
+    if not (cli["dense_points"] >= 3000 and cli["dense_median"] < GLOBAL_DENSE_GATE[0]
+            and cli["dense_share"] > GLOBAL_DENSE_GATE[1]):
+        raise AssertionError("global_sfm_cli: dense cloud fails GLOBAL_DENSE_GATE")
+    check_k1_shapes(cli["k1_by_stage"], shapes, "global_sfm_cli")
+    if cli["k1_by_stage"].get("patchmatch_mvs", {}).get("kernel", 0) == 0:
+        raise AssertionError("global_sfm_cli: K1 never launched by PatchMatch")
+    report["cli"] = cli
+
+    # The profiled rerun: each stage call of the global solve under its
+    # own device-only profile, against the warm run's synced stage times.
+    profs = run(_StageProfiles)[1].profs
+    report["profile"] = {
+        name: summarize_profiles(profs.get(name, []), clock.seconds[name] or 1e-9,
+                                 f"global_sfm {name}")
+        for name in GLOBAL_FUNCTIONS + GLOBAL_METHODS if profs.get(name)}
+    measured = [v for v in report["profile"].values() if v]
+    if measured:
+        busy = sum(v["device_busy_s"] for v in measured)
+        solve = report["seconds"]["global_solve_time"]
+        print(f"[profile] global_sfm, the global solve: device busy {busy:.4f} s in "
+              f"{sum(v['kernels'] for v in measured)} kernels and copies, "
+              f"{100 * busy / solve:.1f}% of the warm run's {solve:.3f} s "
+              f"(idle {100 * (1 - busy / solve):.1f}%)", flush=True)
+    return report
+
+
+def lightglue_flops(N: int, D: int, layers: int) -> float:
+    """Floating-point operations of LightGlueNet on one pair of N keypoint
+    slots (every slot computed, valid or not): per layer and set, four
+    attention projections (8 N D^2) and two products (4 N^2 D) for self-
+    and for cross-attention, and a message MLP 2D -> 2D -> D (12 N D^2)
+    after each; then input_proj and final_proj (2 N D^2 each a set) and the
+    similarity (2 N^2 D). Softmax, LayerNorm and GELU are left out."""
+    per_set_layer = 2 * (8 * N * D * D + 4 * N * N * D + 12 * N * D * D)
+    return 2 * layers * per_set_layer + 2 * 2 * (2 * N * D * D) + 2 * N * N * D
+
+
+def neural_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
+    """(a) The CLI's `IMAGES --neural --mvs`, K1 counted by stage and shape;
+    (b) SfMPipeline(neural_mode=True, matcher="lightglue") on the first
+    LIGHTGLUE_VIEWS views; (c) one match_pairs_batched chunk of 8 pairs of
+    2,048 keypoint slots with the bundled LightGlue at full width."""
+    import dataclasses
+
+    from recon3d_tpu_torch.config import ReconstructionConfig
+    from recon3d_tpu_torch.neural.lightglue import normalize_keypoints
+    from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+    cli = cli_sparse_run(work, scene, card, "neural_cli", ["--neural"])
+    print(json.dumps(cli), flush=True)
+    check_sparse(cli, cli["pose_errors"], NEURAL_SPARSE_GATE, "neural_cli")
+    print(f"[neural_cli] dense_mvs.ply {cli['dense_points']} points, median "
+          f"{cli['dense_median']:.4f} (gate < {CLI_DENSE_GATE[0]}), share "
+          f"{cli['dense_share']:.4f} (gate > {CLI_DENSE_GATE[1]})", flush=True)
+    if not (cli["dense_points"] >= 3000 and cli["dense_median"] < CLI_DENSE_GATE[0]
+            and cli["dense_share"] > CLI_DENSE_GATE[1]):
+        raise AssertionError("neural_cli: dense cloud fails CLI_DENSE_GATE")
+    check_k1_shapes(cli["k1_by_stage"], shapes, "neural_cli")
+    sp_key = next(sh["shape_key"] for sh in shapes if sh["stage"] == "sparse_sfm")
+    sparse_k1 = cli["k1_by_stage"]["sparse_sfm"]
+    if sparse_k1["kernel"] != N_VIEWS or sparse_k1["kernel_by_shape"] != {sp_key: N_VIEWS}:
+        raise AssertionError(f"neural_cli: SuperPoint launched K1 {sparse_k1}, not once a "
+                             f"view at {sp_key}")
+    if cli["k1_by_stage"]["patchmatch_mvs"]["kernel"] == 0:
+        raise AssertionError("neural_cli: K1 never launched by PatchMatch")
+
+    cfg = ReconstructionConfig()
+    cfg = cfg.replace(neural=dataclasses.replace(cfg.neural, matcher="lightglue"))
+    pipe = SfMPipeline(calibration_path=str(work / "calibration.npz"), neural_mode=True,
+                       config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe.reconstruct(str(work / "images"), max_images=LIGHTGLUE_VIEWS)
+    torch.cuda.synchronize()
+    lg_wall = time.perf_counter() - t0
+    st = pipe.stats
+    lg = {"views": LIGHTGLUE_VIEWS, "wall_s": lg_wall, "num_cameras": st["num_cameras"],
+          "num_points": st["num_points"], "num_pairs": st["num_pairs"],
+          "num_candidate_pairs": st["num_candidate_pairs"],
+          "mean_reproj_px": st["mean_reproj_px"],
+          "unregistered": sorted(set(range(LIGHTGLUE_VIEWS)) - set(pipe.registered)),
+          "pose_errors": pose_errors(pipe.poses, scene),
+          "seconds": {k: st[k] for k in ("load_time", "extract_time", "match_time",
+                                         "init_time", "incremental_time", "final_ba_time",
+                                         "total_time")},
+          "peak_bytes": torch.cuda.max_memory_allocated(),
+          "matcher_kind": pipe.matcher.matcher_kind}
+    print("[neural lightglue] " + json.dumps(lg), flush=True)
+    if lg["matcher_kind"] != "lightglue":
+        raise AssertionError("neural lightglue: the matcher is not LightGlue")
+    check_sparse(st, lg["pose_errors"], LIGHTGLUE_GATE, "neural lightglue")
+
+    # (c) one chunk of 8 pairs at 2,048 keypoint slots
+    m = pipe.matcher
+    feats = pipe.features
+    pairs = pipe._candidate_pairs(LIGHTGLUE_VIEWS)[:8]
+    hw = pipe.image_set.gray.shape[1:3]
+    N, D, L = feats[0].desc.shape[0], m.config.descriptor_dim, m.config.lightglue_layers
+    pi = torch.tensor([p[0] for p in pairs], device="cuda")
+    pj = torch.tensor([p[1] for p in pairs], device="cuda")
+    desc = torch.stack([f.desc for f in feats])
+    xy = torch.stack([f.xy for f in feats])
+    valid = torch.stack([f.valid for f in feats])
+    args = (desc[pi], desc[pj], normalize_keypoints(xy[pi], hw), normalize_keypoints(xy[pj], hw),
+            valid[pi], valid[pj])
+
+    def network():
+        with torch.no_grad():
+            return m.lg(*args)
+
+    def chunk():
+        return m.match_pairs_batched(feats, pairs, torch.Generator(device="cuda").manual_seed(0),
+                                     hw=hw)
+
+    network()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    chunk()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        chunk()
+    torch.cuda.synchronize()
+    chunk_ms = 1e3 * (time.perf_counter() - t0) / reps
+    net_ms = cuda_ms(network, reps, prefill=False)
+    flops = lightglue_flops(N, D, L) * len(pairs)
+    bound_ms = 1e3 * flops / F32_OPS_PER_S
+    bench = {"pairs": len(pairs), "keypoint_slots": N, "dim": D, "layers": L,
+             "chunk_ms": chunk_ms, "chunk_ms_per_pair": chunk_ms / len(pairs),
+             "network_ms": net_ms, "network_ms_per_pair": net_ms / len(pairs),
+             "peak_transient_bytes": peak, "network_flops": flops,
+             "network_tflop_s": flops / (net_ms * 1e-3) / 1e12,
+             "f32_bound_ms": bound_ms, "share_of_f32_peak": bound_ms / net_ms}
+    print("[neural chunk] " + json.dumps(bench), flush=True)
+    return {"phase": "neural", "card": card, "cli": cli, "lightglue": lg, "chunk": bench}
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
@@ -1323,44 +1678,58 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
-    shapes = kernel_phase()
-    small_scene_check()
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[time] phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
+    t_start = time.perf_counter()
+    shapes = phase("kernels", kernel_phase)
+    phase("small_scene", small_scene_check)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
-        scene = render_north_star(work)
-        main_path(work, card)
-        sfm_front(work, scene, card)
-        sfm_sparse(work, scene, card)
-        images = cli_images(work, scene, card)
-        stereo = stereo_run(work, card)
-        dense_profile(work, images)
-        dsift = dense_sift_phase(work, scene, card)
-        ckpt = checkpoint_phase(work, card)
-    rescue_phase(card)
-    dense_sift_budget(card)
+        scene = phase("render", render_north_star, work)
+        phase("dense_from_colmap", main_path, work, card)
+        phase("sfm_front", sfm_front, work, scene, card)
+        phase("sfm_sparse", sfm_sparse, work, scene, card)
+        images = phase("cli_images", cli_images, work, scene, card)
+        stereo = phase("stereo", stereo_run, work, card)
+        phase("dense_profile", dense_profile, work, images)
+        dsift = phase("dense_sift", dense_sift_phase, work, scene, card)
+        ckpt = phase("checkpoint", checkpoint_phase, work, card)
+        gsfm = phase("global_sfm", global_sfm_phase, work, scene, card, shapes)
+        neural = phase("neural", neural_phase, work, scene, card, shapes)
+    phase("rescue", rescue_phase, card)
+    phase("dense_sift_budget", dense_sift_budget, card)
+    print("[time] phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # launches on the main path (cli_images) at each shape of the kernel phase
+    # Launches at each shape of the kernel phase: on the main path
+    # (cli_images), and on this slice's neural path (SuperPoint's shape).
+    neural_k1 = neural["cli"]["k1_by_stage"]
     for sh in shapes:
-        sh["launches"] = images["k1_by_stage"][sh["stage"]]["kernel_by_shape"].get(
-            sh["shape_key"], 0)
-    unseen = [sh["shape_key"] for sh in shapes if sh["launches"] == 0]
+        sh["launches"] = images["k1_by_stage"].get(sh["stage"], {}).get(
+            "kernel_by_shape", {}).get(sh["shape_key"], 0)
+        sh["neural_run_launches"] = neural_k1.get(sh["stage"], {}).get(
+            "kernel_by_shape", {}).get(sh["shape_key"], 0)
+    unseen = [sh["shape_key"] for sh in shapes
+              if sh["launches"] == 0 and sh["neural_run_launches"] == 0]
     if unseen:
-        raise AssertionError(f"the main path never launched K1 at the kernel phase's "
-                             f"shapes {unseen}: {images['k1_by_stage']}")
-    if sum(sh["launches"] for sh in shapes) != images["k1_launches"]:
-        raise AssertionError(f"the main path launched K1 at shapes the kernel phase does "
-                             f"not hold: {images['k1_by_stage']}")
-    # launches by variant on the main path, against the planner's pick at
-    # each shape of the kernel phase
-    by_variant, expected = {}, {}
-    for st in images["k1_by_stage"].values():
+        raise AssertionError(f"the main paths never launched K1 at the kernel phase's "
+                             f"shapes {unseen}: {images['k1_by_stage']}, {neural_k1}")
+    # every launch at a kernel-phase shape, in the variant the planner
+    # picks there (the neural run's were checked in its phase)
+    check_k1_shapes(images["k1_by_stage"], shapes, "cli_images")
+    by_variant = {}
+    for st in list(images["k1_by_stage"].values()) + list(neural_k1.values()):
         for v, n in st["kernel_by_variant"].items():
             by_variant[v] = by_variant.get(v, 0) + n
-    for sh in shapes:
-        expected[sh["variant"]] = expected.get(sh["variant"], 0) + sh["launches"]
-    if by_variant != expected:
-        raise AssertionError(f"the main path's K1 variants {by_variant} are not the "
-                             f"planner's picks at its shapes {expected}")
     head = shapes[0]
     variants = []
     for v in warp.VARIANTS:
@@ -1380,7 +1749,7 @@ def main() -> int:
     kernels = [{
         "name": "tent_warp", "route": "cuda",
         "source": "recon3d_tpu_torch/csrc/warp.cu", "replaces": K1_REPLACES,
-        "launches": images["k1_launches"],
+        "launches": images["k1_launches"] + neural["cli"]["k1_launches"],
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1390,6 +1759,8 @@ def main() -> int:
         "dense_sift_run_launches": dsift["k1_by_stage"],
         "checkpoint_run_launches": {name: r["k1_by_shape"]
                                     for name, r in ckpt["runs"].items()},
+        "neural_run_launches": neural_k1,
+        "global_sfm_run_launches": gsfm["cli"]["k1_by_stage"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

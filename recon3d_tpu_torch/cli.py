@@ -93,7 +93,6 @@ def unported_modes(args) -> list:
     return [
         f"{flag} (ROADMAP.md, section 1, item {item})"
         for flag, on, item in [
-            ("--neural", args.neural, 11), ("--global-sfm", args.global_sfm, 10),
             ("--devices > 1", args.devices > 1, 12),
         ]
         if on
@@ -201,6 +200,7 @@ def main(argv=None) -> int:
 
     mode = [
         m for f, m in [
+            (args.neural, "Neural matching"),
             (args.mvs, "PatchMatch MVS"), (args.stereo, "Plane-sweep stereo"),
             (args.dense, "Dense SIFT"), (args.combined, "Combined"),
             (args.fast, "Fast/sparse"),
@@ -273,18 +273,23 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
         pipeline = SfMPipeline(
             calibration_path=args.calibration,
             fast_mode=args.fast,
+            neural_mode=args.neural,
             config=cfg,
             prescale_hints=tuple(sorted(prescales)),
             device=device,
         )
-        with timer.stage("sparse_sfm"):
+        # SuperPoint samples its descriptors through K1
+        k1_sparse = (_k1_calls(k1_calls, "sparse_sfm") if args.neural
+                     else contextlib.nullcontext())
+        with timer.stage("sparse_sfm"), k1_sparse:
             if ckpt and ckpt.restore_sparse(pipeline):
                 print("[ckpt] restored sparse reconstruction")
                 points = pipeline.points3d.copy()
                 colors = pipeline.point_colors.copy()
                 pipeline.load_images(str(image_dir), args.max_images)
             else:
-                points, colors, _ = pipeline.reconstruct(str(image_dir), args.max_images)
+                run = pipeline.reconstruct_global if args.global_sfm else pipeline.reconstruct
+                points, colors, _ = run(str(image_dir), args.max_images)
                 if ckpt:
                     ckpt.save_sparse(pipeline)
             poses = dict(pipeline.poses)

@@ -1,13 +1,15 @@
 """Carry the JAX package's state across to the port.
 
-The ported paths have no trained weights: their parameters are the
-configuration tree and the camera, and the state that passes between their
+The parameters of the ported paths are the configuration tree, the camera
+and the neural front end's weights; the state that passes between their
 stages is the padded keypoint sets, the verified match graph and the
 growing reconstruction (poses, points, tracks). These helpers rebuild all
 of them from plain Python and numpy values (never JAX objects), so that
 both packages can run one configuration (dataclasses.asdict of a
 recon3d_tpu ReconstructionConfig, np.asarray of its Camera's K and dist),
-hand one another's features to their matchers and continue one another's
+share one checkpoint of SuperPoint and LightGlue (the '/'-keyed .npz files
+that the JAX package's neural/weights.save_params_npz writes), hand one
+another's features to their matchers and continue one another's
 reconstructions.
 """
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import typing
+from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -205,3 +208,64 @@ def sfm_state_from_numpy(pipe, state: dict) -> None:
         pipe.corr = {}
         for pid, cam, kp in pipe._obs_log.view().tolist():
             pipe._note_kp_link(cam, kp, pid)
+
+
+def flax_to_state_dict(flat: Dict[str, np.ndarray], module: torch.nn.Module
+                       ) -> Dict[str, torch.Tensor]:
+    """The state_dict of `module` from the flat '/'-keyed parameters of a
+    Flax module ('params/<path>/<leaf>', as save_params_npz stores them).
+
+    Conv kernels go from HWIO to OIHW, Dense kernels from (in, out) to
+    nn.Linear's (out, in), LayerNorm's `scale` becomes `weight`, other
+    leaves (LightGlue's rotary_freqs) keep their name. Values take the
+    dtype of the module's parameter (the checkpoint stores float16; the
+    JAX loader restores the template's float32 the same way). Raises
+    KeyError when a key of the file matches no parameter or a parameter is
+    left unset, ValueError on a shape mismatch."""
+    params = dict(module.named_parameters())
+    out: Dict[str, torch.Tensor] = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        *path, leaf = parts
+        arr = np.asarray(arr)
+        if leaf == "kernel":
+            leaf = "weight"
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif leaf == "scale":
+            leaf = "weight"
+        name = ".".join(path + [leaf])
+        if name not in params:
+            raise KeyError(f"checkpoint parameter {key} matches no parameter of "
+                           f"{type(module).__name__} ({name})")
+        if tuple(arr.shape) != tuple(params[name].shape):
+            raise ValueError(f"checkpoint shape mismatch at {key}: {arr.shape} vs "
+                             f"{tuple(params[name].shape)}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(params[name].dtype)
+    unset = sorted(set(params) - set(out))
+    if unset:
+        raise KeyError(f"checkpoint misses parameters {unset[:5]} of {type(module).__name__}")
+    return out
+
+
+def read_params_npz(path) -> Dict[str, np.ndarray]:
+    """The flat '/'-keyed arrays of a save_params_npz checkpoint. A torch
+    .pth checkpoint raises NotImplementedError: its converters (the JAX
+    package's neural/weights.py) are not ported yet (ROADMAP.md, section 1,
+    item 11)."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        raise NotImplementedError(
+            f"{path.name}: torch checkpoint conversion is not ported yet "
+            "(ROADMAP.md, section 1, item 11); pass a save_params_npz .npz file")
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_params_npz(path, module: torch.nn.Module) -> torch.nn.Module:
+    """Load a save_params_npz checkpoint into `module` in place, through
+    flax_to_state_dict: every key of the file consumed, every parameter
+    set."""
+    module.load_state_dict(flax_to_state_dict(read_params_npz(path), module), strict=True)
+    return module

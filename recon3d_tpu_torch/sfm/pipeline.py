@@ -8,9 +8,11 @@ normalization -> PLY. The host Python here is O(images) control flow only;
 every hot operation is a batched function of recon3d_tpu_torch.ops on the
 pipeline's device.
 
-Not ported yet, and raising NotImplementedError: global SfM (ROADMAP.md,
-section 1, item 10), the neural front end (item 11) and sharding over
-several devices (item 12).
+reconstruct_global replaces the registration waves by rotation and
+translation averaging (sfm/global_sfm.py); neural_mode swaps the SIFT
+front end for SuperPoint + LightGlue (neural/matcher.py). Not ported yet,
+and raising NotImplementedError: sharding over several devices
+(ROADMAP.md, section 1, item 12).
 
 Dynamic-size state (matches, tracks, observations, keypoint tables) lives
 on the host in numpy; device calls are padded to geometric buckets so that
@@ -214,7 +216,7 @@ class SfMPipeline:
     Args:
       calibration_path: optional .npz (mtx, dist) file.
       fast_mode: fewer features / looser ratio.
-      neural_mode: SuperPoint+LightGlue front end (not ported yet).
+      neural_mode: SuperPoint + LightGlue front end instead of SIFT.
       config: full ReconstructionConfig (overrides the fast_mode presets).
       device: "cuda" (default; an error without a GPU) or "cpu".
     """
@@ -229,9 +231,6 @@ class SfMPipeline:
         prescale_hints: Tuple[float, ...] = (),
         device="cuda",
     ):
-        if neural_mode:
-            raise NotImplementedError(
-                "the neural front end is not ported yet (ROADMAP.md, section 1, item 11)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device matching is not ported yet (ROADMAP.md, section 1, item 12)")
@@ -245,8 +244,15 @@ class SfMPipeline:
         self.camera: Optional[Camera] = (
             load_calibration(calibration_path) if calibration_path else None
         )
-        self.extractor = FeatureExtractor(self.config.sift, device=self.device)
-        self.matcher = FeatureMatcher(self.config.match)
+        self.neural_mode = neural_mode
+        if neural_mode:
+            from recon3d_tpu_torch.neural.matcher import NeuralMatcher
+
+            self.extractor = NeuralMatcher(self.config.neural, device=self.device)
+            self.matcher = self.extractor
+        else:
+            self.extractor = FeatureExtractor(self.config.sift, device=self.device)
+            self.matcher = FeatureMatcher(self.config.match)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.config.sfm.seed)
         self.reset()
@@ -274,7 +280,7 @@ class SfMPipeline:
         # feeds the device-resident log of bundle_adjust_log (only rows
         # appended since the previous BA call are uploaded). Kept in sync
         # by _record_obs. Every site that rebuilds `observations` wholesale
-        # (drop_invalid_observations) bumps _obs_generation, which
+        # (drop_invalid_observations, global SfM) bumps _obs_generation, which
         # bundle_adjustment_full compares (besides the total count) to
         # decide whether the log is stale.
         self._obs_log = _PointStore(3, np.int32)
@@ -319,22 +325,30 @@ class SfMPipeline:
     # -- stage 2: features ----------------------------------------------------
 
     def extract_features(self):
-        """Feature extraction of every image, as one two-phase batch."""
+        """Feature extraction of every image: SIFT as one two-phase batch,
+        SuperPoint image by image."""
         t0 = time.time()
         n = self.image_set.gray.shape[0]
         self.kp_xy = []
         self.kp_to_point = []
-        # stacked (V, ...) device tensors; per-image views only on demand
         tm: Dict[str, float] = {}
-        stacked = self.extractor.extract_batch(self.image_set.gray, timings=tm)
-        self.features_stacked = stacked
-        self.features = _LazyFeatureList(stacked, n)
-        # keypoint pull: the one host sync of the stage. It waits for every
-        # describe, then downloads (V, K, 2) + (V, K); the descriptors stay
-        # on the device, where matching reads them.
-        t_pull = time.time()
-        xy_all = stacked.xy.cpu().numpy()
-        valid_all = stacked.valid.cpu().numpy()
+        if self.neural_mode:
+            self.features_stacked = None
+            self.features = [self.extractor.extract(self.image_set.gray[i]) for i in range(n)]
+            t_pull = time.time()
+            xy_all = torch.stack([f.xy for f in self.features]).cpu().numpy()
+            valid_all = torch.stack([f.valid for f in self.features]).cpu().numpy()
+        else:
+            # stacked (V, ...) device tensors; per-image views only on demand
+            stacked = self.extractor.extract_batch(self.image_set.gray, timings=tm)
+            self.features_stacked = stacked
+            self.features = _LazyFeatureList(stacked, n)
+            # keypoint pull: the one host sync of the stage. It waits for
+            # every describe, then downloads (V, K, 2) + (V, K); the
+            # descriptors stay on the device, where matching reads them.
+            t_pull = time.time()
+            xy_all = stacked.xy.cpu().numpy()
+            valid_all = stacked.valid.cpu().numpy()
         tm["kp_pull_sync_s"] = time.time() - t_pull
         self.stats["extract_detail_s"] = {k: round(v, 3) for k, v in tm.items()}
         for r in range(n):
@@ -372,24 +386,30 @@ class SfMPipeline:
 
     def match_image_pairs(self):
         """Geometric matching of the candidate pairs, whole chunks of pairs
-        at a time (features/frontend.py match_pairs_batched)."""
+        at a time (features/frontend.py match_pairs_batched, or the neural
+        matcher's match_pairs_batched in neural mode)."""
         t0 = time.time()
         n = len(self.features)
         pairs = self._candidate_pairs(n)
         kept = 0
         if pairs:
-            tm: Dict[str, float] = {}
-            results = match_pairs_batched(
-                self.features_stacked, pairs, self._generator,
-                self.config.match, timings=tm,
-            )
-            self.stats["match_detail_s"] = {k: round(v, 3) for k, v in tm.items()}
+            if self.neural_mode:
+                results = self.matcher.match_pairs_batched(
+                    self.features, pairs, self._generator,
+                    hw=self.image_set.gray.shape[1:3])
+            else:
+                tm: Dict[str, float] = {}
+                results = match_pairs_batched(
+                    self.features_stacked, pairs, self._generator,
+                    self.config.match, timings=tm,
+                )
+                self.stats["match_detail_s"] = {k: round(v, 3) for k, v in tm.items()}
             mm = self.config.match.min_matches
             for (i, j, idx1, idx2, F, n_inl, n_raw) in results:
                 if n_raw >= mm and n_inl >= mm:
                     self.matches[(i, j)] = dict(idx1=idx1, idx2=idx2, F=F, n=len(idx1))
                     kept += 1
-            if self.config.match.long_span_rematch:
+            if self.config.match.long_span_rematch and not self.neural_mode:
                 kept += self._rematch_long_span(pairs)
         print(f"[sfm] matched {kept}/{len(pairs)} pairs "
               f"({time.time() - t0:.1f}s)")
@@ -1308,7 +1328,8 @@ class SfMPipeline:
                         (int(H0 * s), int(W0 * s))).cpu().numpy()
         else:
             up = gray
-        feats = self.extractor.extract_batch(up)
+        # SIFT at the finer scale, in neural mode too
+        feats = FeatureExtractor(cfg.sift, device=self.device).extract_batch(up)
         res = match_pairs_batched(
             feats, [(local[i], local[j]) for (i, j) in pairs],
             self._generator, cfg.match,
@@ -1402,17 +1423,7 @@ class SfMPipeline:
     ):
         """Full pipeline. Returns (points (P, 3) float32, colors (P, 3)
         uint8, poses {idx: CameraPose})."""
-        t0 = time.time()
-        if image_set is not None:
-            self.set_image_set(image_set)
-        elif image_dir is not None:
-            self.load_images(image_dir, max_images)
-        elif self.image_set is None:
-            raise ValueError("need image_dir or image_set")
-        self.stats["load_time"] = time.time() - t0
-
-        self.extract_features()
-        self.match_image_pairs()
+        t0 = self._front_end(image_dir, max_images, image_set)
 
         t_init = time.time()
         pair = self.find_best_initial_pair()
@@ -1508,13 +1519,7 @@ class SfMPipeline:
             f"{self.stats.get('incremental_breakdown_s')})"
         )
 
-        points = self.points3d.copy()
-        colors = self.point_colors.copy()
-        poses = {
-            i: CameraPose(R=torch.from_numpy(np.array(R)), t=torch.from_numpy(np.array(t)))
-            for i, (R, t) in sorted(self.poses.items())
-        }
-        return points, colors, poses
+        return self._result()
 
     # -- stage 8: normalization + output ------------------------------------------
 
@@ -1593,11 +1598,56 @@ class SfMPipeline:
         if poses:
             save_cameras_ply(path, stack_poses(poses))
 
-    def reconstruct_global(self, *args, **kwargs):
-        """Global SfM (rotation + translation averaging): not ported yet."""
-        raise NotImplementedError(
-            "global SfM is not ported yet (ROADMAP.md, section 1, item 10): "
-            "SfMPipeline.reconstruct_global")
+    def reconstruct_global(
+        self,
+        image_dir: Optional[str] = None,
+        max_images: Optional[int] = None,
+        image_set: Optional[ImageSet] = None,
+    ):
+        """Global SfM (sfm/global_sfm.py): rotation and translation
+        averaging over the whole pose graph instead of incremental
+        registration. Same return contract as reconstruct()."""
+        from recon3d_tpu_torch.sfm.global_sfm import run_global_sfm
+
+        t0 = self._front_end(image_dir, max_images, image_set)
+        t_g = time.time()
+        run_global_sfm(self)
+        self.stats["global_solve_time"] = time.time() - t_g
+        self.stats["total_time"] = time.time() - t0
+        self.stats["num_points"] = len(self.points3d)
+        self.stats["num_cameras"] = len(self.registered)
+        self.stats["mean_reproj_px"] = self._mean_reproj_error()
+        print(
+            f"[sfm] global: {len(self.points3d)} points, "
+            f"{len(self.registered)}/{len(self.features)} cameras, "
+            f"reproj {self.stats['mean_reproj_px']:.3f} px, "
+            f"{self.stats['total_time']:.1f}s"
+        )
+        return self._result()
+
+    def _front_end(self, image_dir, max_images, image_set) -> float:
+        """Stages 1-3 of either reconstruction: take or load the images,
+        extract, match. Returns the start time."""
+        t0 = time.time()
+        if image_set is not None:
+            self.set_image_set(image_set)
+        elif image_dir is not None:
+            self.load_images(image_dir, max_images)
+        elif self.image_set is None:
+            raise ValueError("need image_dir or image_set")
+        self.stats["load_time"] = time.time() - t0
+        self.extract_features()
+        self.match_image_pairs()
+        return t0
+
+    def _result(self):
+        """(points (P, 3) float32, colors (P, 3) uint8, poses {idx:
+        CameraPose}): copies of the current reconstruction."""
+        poses = {
+            i: CameraPose(R=torch.from_numpy(np.array(R)), t=torch.from_numpy(np.array(t)))
+            for i, (R, t) in sorted(self.poses.items())
+        }
+        return self.points3d.copy(), self.point_colors.copy(), poses
 
     def save_colmap(self, out_dir: str):
         """Export the sparse model as a COLMAP text model (cameras.txt /

@@ -3,7 +3,8 @@
 on the 5 views of tests/test_cli.py, `images --mvs --mesh --stereo` on the
 port alone, and `--mvs`, `--stereo --mesh`, `--dense` and `--combined` with
 `--from-colmap` and a COLMAP model made from the ground-truth poses, with
-PatchMatch's depth checkpoints and --profile."""
+PatchMatch's depth checkpoints and --profile; `images --global-sfm` and
+`images --neural` on the port alone."""
 
 import json
 from pathlib import Path
@@ -75,7 +76,7 @@ def test_cli_mvs_from_colmap_matches_jax_cli(colmap_scene, tmp_path):
     assert set(s["stage_times_s"]) == {"sparse_sfm", "patchmatch_mvs"}
 
 
-@pytest.mark.parametrize("flags", [["--neural"], ["--global-sfm"], ["--devices", "2"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"]])
 def test_unported_modes_exit_nonzero(colmap_scene, tmp_path, flags, capsys):
     img_dir, model = colmap_scene
     argv = [img_dir, "--mvs", "--output", str(tmp_path / "o"), "--device", "cpu", *flags,
@@ -102,6 +103,45 @@ def sfm_scene(tmp_path_factory):
     for i, img in enumerate(scene["images"]):
         Image.fromarray((img * 255).astype(np.uint8)).save(d / f"im_{i:03d}.png")
     return str(d), scene
+
+
+def _sparse_mode_run(img_dir, tmp_path, mode):
+    """`IMAGES <mode>` through the port's CLI on the CPU: sparse.ply,
+    cameras.ply and poses.npz of every view, and the run's stats."""
+    out, stats = tmp_path / "out", tmp_path / "stats.json"
+    assert main([img_dir, mode, "--output", str(out), "--stats-json", str(stats),
+                 "--device", "cpu"]) == 0
+    st = json.loads(stats.read_text())
+    pts, cols = load_ply(str(out / "sparse.ply"))
+    assert len(pts) == st["num_points"] == st["num_sparse_points"] > 30
+    assert np.isfinite(pts).all() and cols.shape == pts.shape
+    assert st["num_cameras"] == 5 and st["mean_reproj_px"] < 1.5
+    assert len(np.load(out / "poses.npz")["image_ids"]) == 5
+    assert (out / "cameras.ply").exists()
+    return st
+
+
+def test_cli_images_global_sfm(sfm_scene, tmp_path):
+    img_dir, _ = sfm_scene
+    st = _sparse_mode_run(img_dir, tmp_path, "--global-sfm")
+    assert st["global_solve_time"] > 0
+
+
+def test_cli_images_neural(tmp_path):
+    """`IMAGES --neural`: SuperPoint with the bundled weights and the nn
+    matcher at the default NeuralConfig, on 5 views of 192x256. (On the 5
+    views of 128x160 SuperPoint finds about 68 keypoints a view, and the
+    JAX CLI's --neural, like the port's, finds no initial pair there.)"""
+    from PIL import Image
+
+    scene = render_views(n_views=5, image_size=(192, 256), arc_step=0.15)
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    for i, img in enumerate(scene["images"]):
+        Image.fromarray((img * 255).astype(np.uint8)).save(img_dir / f"im_{i:03d}.png")
+    st = _sparse_mode_run(str(img_dir), tmp_path, "--neural")
+    assert min(st["features_per_image"]) > 100 and "global_solve_time" not in st
+    assert st["k1_calls_by_stage"]["sparse_sfm"]["plain"] == 5     # one sampling a view
 
 
 @pytest.fixture(scope="module")

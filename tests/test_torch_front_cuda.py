@@ -116,3 +116,65 @@ def test_match_stage_keeps_the_same_pairs_on_both_devices(cuda_device):
         assert abs(a[5] - b[5]) <= max(2, 0.1 * a[5])         # inliers: other draws
     assert out["cuda"][0][5] >= 20 and out["cuda"][1][5] >= 20
     assert out["cuda"][2][5] < 20                             # unrelated textures
+
+
+@pytest.mark.parametrize("option", ["multi_orientation", "upsample"])
+def test_extraction_options_give_the_same_keypoints_on_both_devices(cuda_device, option):
+    """SiftConfig's multi_orientation (a secondary orientation per peak of
+    the histogram) and upsample (the pyramid starts one octave below the
+    image): the same slots on the card as on the CPU."""
+    cfg = dataclasses.replace(SiftConfig(), max_features=1024, **{option: True})
+    imgs = _images()
+    on_cpu = FeatureExtractor(cfg, device="cpu").extract_batch(imgs)
+    on_card = FeatureExtractor(cfg, device="cuda").extract_batch(imgs)
+    v = on_cpu.valid.numpy()
+    assert v.sum(1).min() > 40
+    np.testing.assert_array_equal(on_card.valid.cpu().numpy(), v)
+    np.testing.assert_allclose(on_card.xy.cpu().numpy()[v], on_cpu.xy.numpy()[v], atol=0.05)
+    np.testing.assert_allclose(on_card.angle.cpu().numpy()[v], on_cpu.angle.numpy()[v],
+                               atol=0.02)
+    cos = (on_card.desc.cpu().numpy()[v] * on_cpu.desc.numpy()[v]).sum(-1)
+    assert np.mean(cos >= 0.999) >= 0.95
+
+
+def test_long_span_rematch_recovers_the_same_pairs_on_both_devices(cuda_device, monkeypatch):
+    """The rematch's recovered branch (tests/test_torch_sfm_front.py holds
+    it to the JAX pipeline on the CPU): 10 views at match_window=2 with
+    the homography gate held open (the rendered scene is made of planes,
+    so the gate would reject every probe pair). On the card as on the CPU
+    the same aux pairs are recovered, with inlier counts within a tenth,
+    their keypoints appended behind each view's load-resolution table."""
+    from collections import namedtuple
+
+    from recon3d_tpu_torch.camera import Camera
+    from recon3d_tpu_torch.config import ReconstructionConfig
+    from recon3d_tpu_torch.io.dataset import image_set_from_arrays
+    from recon3d_tpu_torch.sfm import pipeline as tpipe
+    from tests.render import render_views
+
+    no_plane = namedtuple("HomographyResult", "H inliers num_inliers")(None, None, 0)
+    monkeypatch.setattr(tpipe, "estimate_homography_ransac", lambda *a, **k: no_plane)
+    scene = render_views(n_views=10, image_size=(120, 160), arc_step=0.12)
+    cfg = ReconstructionConfig()
+    cfg = cfg.replace(sift=dataclasses.replace(cfg.sift, max_features=1024),
+                      match=dataclasses.replace(cfg.match, ransac_hypotheses=256),
+                      sfm=dataclasses.replace(cfg.sfm, match_window=2))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        pipe = tpipe.SfMPipeline(config=cfg, device=dev)
+        pipe.set_image_set(image_set_from_arrays(scene["images"],
+                                                 Camera.from_matrix(scene["K"])))
+        pipe.extract_features()
+        before = [len(k) for k in pipe.kp_xy]
+        pipe.match_image_pairs()
+        runs[dev] = (pipe, before)
+    (cpu, _), (card, before) = runs["cpu"], runs["cuda"]
+    aux = {p for p, m in card.matches.items() if m.get("aux")}
+    assert card.stats["rematch_recovered"] == len(aux) >= 1
+    assert aux == {p for p, m in cpu.matches.items() if m.get("aux")}
+    for (i, j) in aux:
+        m, r = card.matches[(i, j)], cpu.matches[(i, j)]
+        assert abs(m["n"] - r["n"]) <= max(2, 0.1 * r["n"])
+        assert m["idx1"].min() >= before[i] and m["idx2"].min() >= before[j]
+        assert m["idx1"].max() < len(card.kp_xy[i]) == len(card.kp_to_point[i])
+    assert [len(k) for k in card.kp_xy] == [len(k) for k in cpu.kp_xy]

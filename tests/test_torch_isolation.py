@@ -50,6 +50,15 @@ with tempfile.TemporaryDirectory() as tmp:
     StageCheckpointer(tmp).save_depth(0, d[0], d[0])
     with maybe_trace(tmp, "cpu"):
         torch.ones(3).sum()
+from recon3d_tpu_torch.sfm.global_sfm import rotation_averaging, translation_averaging
+Rr = np.stack([np.eye(3, dtype=np.float32)] * 3)
+ei, ej = np.array([0, 1, 0], np.int32), np.array([1, 2, 2], np.int32)
+R, seen = rotation_averaging(ei, ej, Rr, np.ones(3, np.float32), 3, device="cpu")
+assert seen.all() and np.allclose(R, np.eye(3), atol=1e-6)
+from recon3d_tpu_torch.neural import NeuralMatcher
+from recon3d_tpu_torch.config import NeuralConfig
+nf = NeuralMatcher(NeuralConfig(max_keypoints=64), device="cpu").extract(g[0].repeat(2, 0).repeat(2, 1))
+assert nf.desc.shape == (64, 256) and torch.isfinite(nf.desc).all()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "recon3d_tpu"
              or m.startswith("recon3d_tpu."))

@@ -193,16 +193,17 @@ def test_default_device_is_cuda_and_later_stages_name_the_roadmap():
     pipe = tpipe.SfMPipeline(device="cpu")
     assert pipe.device.type == "cpu" and pipe.config == ReconstructionConfig()
     assert tpipe.SfMPipeline(fast_mode=True, device="cpu").config.sift.max_features == 3000
-    # what is still to be ported names its ROADMAP item (save_colmap is
-    # ported: tests/test_torch_cli.py exports and reads back a model)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, section 1, item 10"):
-        pipe.reconstruct_global("out")
+    # what is still to be ported names its ROADMAP item (save_colmap, global
+    # SfM and the neural front end are ported: tests/test_torch_cli.py,
+    # test_torch_global_sfm.py and test_torch_neural.py run them)
+    with pytest.raises(ValueError, match="need image_dir or image_set"):
+        pipe.reconstruct_global()
     # the back end's stages exist and do nothing on an empty pipeline
     assert pipe.find_best_initial_pair() is None and pipe.find_next_image() is None
     assert pipe.register_image(0) is False and pipe.bundle_adjustment_full() is None
     assert pipe._rescue_unregistered() == 0
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpipe.SfMPipeline(neural_mode=True, device="cpu")
+    neural = tpipe.SfMPipeline(neural_mode=True, device="cpu")
+    assert neural.matcher is neural.extractor and neural.matcher.matcher_kind == "nn"
     with pytest.raises(NotImplementedError, match="item 12"):
         tpipe.SfMPipeline(mesh=object(), device="cpu")
     with pytest.raises(ValueError):

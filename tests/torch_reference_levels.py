@@ -58,6 +58,22 @@ state. Runs on the CPU in a few minutes:
    the cloud into the scene's frame (tests/torch_scene.to_scene_frame): the
    level of that phase. `12 port` runs the port's CLI on the CPU beside it.
 
+13. Global SfM: the JAX CLI's `images --global-sfm --mvs --calibration K`
+   on the north-star PNGs: cameras, reprojection error and the
+   similarity-aligned pose errors (tests/torch_scene.pose_errors), and the
+   dense cloud in the scene's frame on the surface gate: the level of
+   chip_smoke.py's global_sfm phase. `13 port` runs the port's CLI on the
+   CPU beside it. About 10 minutes.
+14. The neural front end: the JAX CLI's `images --neural --mvs
+   --calibration K` on the same PNGs (SuperPoint at the default
+   NeuralConfig: 2,048 keypoints, the `nn` matcher): the same measures, the
+   level of chip_smoke.py's neural CLI run. `14 port` adds the port.
+15. LightGlue: the JAX SfMPipeline(neural_mode=True) with
+   matcher="lightglue" (the bundled checkpoint at full width) on the first
+   12 north-star PNGs with the scene's K: cameras, reprojection error, pose
+   errors, pairs kept: the level of chip_smoke.py's LightGlue run. `15 port`
+   adds the port on the CPU.
+
     JAX_PLATFORMS=cpu python tests/torch_reference_levels.py 4 5   # parts 4 and 5 only
 """
 
@@ -324,6 +340,96 @@ def dense_sift_levels(n_views: int, model_dir=None, with_port: bool = False):
                 flush=True)
 
 
+def cli_sfm_levels(part: str, flags, with_port: bool):
+    """The JAX CLI `images <flags> --mvs --calibration K` on the north-star
+    PNGs (and the port's CLI on the CPU beside it): the sparse result
+    against the true poses and the dense cloud in the scene's frame."""
+    import json
+    import tempfile
+    import time
+
+    from recon3d_tpu.cli import main as jax_cli
+    from recon3d_tpu_torch.cli import main as port_cli
+    from recon3d_tpu_torch.io.ply import load_ply
+    from tests.torch_scene import pose_errors, to_scene_frame
+
+    scene = render_views(**NORTH_STAR)
+    print(f"{part}. JAX CLI `images {' '.join(flags)} --mvs` on the north-star scene, the "
+          "scene's K as calibration (CPU)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_pngs(scene, tmp / "images")
+        np.savez(tmp / "calibration.npz", mtx=np.asarray(scene["K"], np.float64),
+                 dist=np.zeros(5))
+        runs = [("jax ", jax_cli, ["--devices", "1"])]
+        if with_port:
+            runs.append(("port", port_cli, ["--device", "cpu"]))
+        for name, cli, extra in runs:
+            out = tmp / name.strip()
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli([str(tmp / "images"), *flags, "--mvs", "--calibration",
+                     str(tmp / "calibration.npz"), "--output", str(out),
+                     "--stats-json", str(out) + ".json", *extra])
+            st = json.loads(Path(str(out) + ".json").read_text())
+            p = np.load(out / "poses.npz")
+            poses = {int(i): (R, t) for i, R, t in zip(p["image_ids"], p["Rs"], p["ts"])}
+            dense, _ = load_ply(str(out / "dense_mvs.ply"))
+            med, share = surface_gate(to_scene_frame(dense, poses, scene))
+            print(f"  {name}: " + json.dumps({
+                "num_cameras": st["num_cameras"], "num_points": st["num_points"],
+                "mean_reproj_px": round(float(st["mean_reproj_px"]), 4),
+                "num_pairs": st.get("num_pairs"),
+                **{k: round(v, 4) for k, v in pose_errors(poses, scene).items()},
+                "dense_points": len(dense), "dense_median": round(med, 4),
+                "dense_share": round(share, 4),
+                "stage_times_s": {k: round(v, 1) for k, v in st["stage_times_s"].items()},
+                "host_seconds": round(time.time() - t0, 1)}), flush=True)
+
+
+def lightglue_levels(with_port: bool, n_views: int = 12):
+    import dataclasses
+    import json
+    import tempfile
+    import time
+
+    from recon3d_tpu.config import ReconstructionConfig as JaxRC
+    from recon3d_tpu.sfm.pipeline import SfMPipeline as JaxPipeline
+    from tests.torch_scene import pose_errors
+
+    scene = render_views(**NORTH_STAR)
+    print(f"15. SfMPipeline(neural_mode=True), matcher='lightglue' (bundled checkpoint), "
+          f"on the first {n_views} north-star PNGs, the scene's K as calibration (CPU)")
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_pngs(scene, Path(tmp))
+        calib = f"{tmp}/calibration.npz"
+        np.savez(calib, mtx=np.asarray(scene["K"], np.float64), dist=np.zeros(5))
+        runs = [("jax ", JaxPipeline, JaxRC)]
+        if with_port:
+            from recon3d_tpu_torch.config import ReconstructionConfig
+            from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
+
+            runs.append(("port", lambda **kw: SfMPipeline(device="cpu", **kw),
+                         ReconstructionConfig))
+        for name, make, rc in runs:
+            cfg = rc()
+            cfg = cfg.replace(neural=dataclasses.replace(cfg.neural, matcher="lightglue"))
+            pipe = make(calibration_path=calib, neural_mode=True, config=cfg)
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                pipe.reconstruct(tmp, max_images=n_views)
+            st = pipe.stats
+            print(f"  {name}: " + json.dumps({
+                "views": n_views, "num_cameras": st["num_cameras"],
+                "num_points": st["num_points"],
+                "mean_reproj_px": round(float(st["mean_reproj_px"]), 4),
+                "num_pairs": st["num_pairs"],
+                "unregistered": sorted(set(range(n_views)) - set(pipe.registered)),
+                **{k: round(v, 4) for k, v in pose_errors(pipe.poses, scene).items()},
+                "match_time": round(st["match_time"], 1),
+                "host_seconds": round(time.time() - t0, 1)}), flush=True)
+
+
 RESCUE_SCENE = dict(n_views=20, image_size=(480, 640), arc_step=0.06,
                     arc_offset=(19 / 2 - 49 / 2) * 0.06)
 
@@ -473,7 +579,13 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
     parts = set(sys.argv[1:]) or {"1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11",
-                                  "12"}
+                                  "12", "13", "14", "15"}
+    if "15" in parts:
+        lightglue_levels("port" in parts)
+    if "14" in parts:
+        cli_sfm_levels("14", ["--neural"], "port" in parts)
+    if "13" in parts:
+        cli_sfm_levels("13", ["--global-sfm"], "port" in parts)
     if "12" in parts:
         model = next((a[len("model="):] for a in parts if a.startswith("model=")), None)
         dense_sift_levels(50 if "full" in parts else 16, model, "port" in parts)
