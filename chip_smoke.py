@@ -1,14 +1,15 @@
 """Smoke test of the PyTorch/CUDA port (recon3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # 9 to 13 minutes on an H100, by the host
+    python3 chip_smoke.py    # 10 to 15 minutes on an H100, by the host
 
 Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port, from csrc/, with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     every shape the main paths give it (K1 at the 14 shapes of its four
+     every shape the main paths give it (K1 at the 15 shapes of its five
      call sites: PatchMatch, the TSDF lookup, the plane sweep, SuperPoint's
-     descriptor sampling), bit for bit
+     descriptor sampling in neural SfM and in LightGlue's training), bit
+     for bit
      in every variant its launch planner can pick there, with times (each
      variant, the plain version, one library call as a yardstick) and the
      least time the card could take; the TSDF shape once more with one
@@ -76,7 +77,19 @@ Phases, each of which passes or raises:
      checkpoint at full width) on the first LIGHTGLUE_VIEWS views, gated at
      LIGHTGLUE_GATE; (c) one match_pairs_batched chunk of 8 pairs at 2,048
      keypoints: ms a pair, peak memory, and LightGlue's operations against
-     the card's float32 peak.
+     the card's float32 peak;
+ 17. train: the neural front end's training path at full width: (a)
+     `python -m recon3d_tpu_torch.neural.pretrain` (SuperPoint from scratch,
+     one round of 192 steps at batch 32 of 128x128) in a subprocess, its
+     losses finite and falling; (b) the bundled fine-tune recipe, one round
+     of homographic adaptation, its .npz loaded into NeuralMatcher with the
+     trained module's forward within float16 storage; (c) `--model
+     lightglue`, one round of 64 steps at batch 16 and 256 keypoints, K1's
+     counts set to 0 just before and read just after: 256 launches at the
+     training shape, 0 plain; (d) one SuperPoint and one LightGlue step on
+     the card against the CPU (tests/torch_train_check.py); (e) a public
+     LightGlue .pth on the card, bit for bit the forward of the same
+     weights through save_params_npz and the .npz path.
 
 Every phase's wall time is printed, and their total, before the JSON lines.
 
@@ -228,6 +241,19 @@ LIGHTGLUE_GATE = {"min_cameras": 11, "mean_reproj_px": 2.11,
 # then rejected by the homography gate (the scene is made of planes).
 LONG_SPAN = [dict(n_views=12, image_size=(240, 320), arc_step=0.2),
              dict(n_views=10, image_size=(120, 160), arc_step=0.12)]
+# The training phase: the JAX defaults that made the bundled checkpoints
+# (SuperPoint batch 32 of 128x128 pairs; LightGlue 9 layers x dim 256 x 4
+# heads, 256 keypoints, batch 16 pairs of 128x128), one round each.
+TRAIN_SP_ARGS = ["--steps", "192", "--batch", "32", "--size", "128"]
+TRAIN_FINETUNE_ARGS = ["--steps", "0", "--adapt-steps", "192", "--init-weights",
+                       str(REPO / "recon3d_tpu/neural/pretrained/superpoint_synthetic.npz"),
+                       "--lr", "1e-4", "--scene-frac", "0.3", "--texture-frac", "0.3"]
+TRAIN_LG_PAIRS, TRAIN_LG_BATCHES, TRAIN_KEYPOINTS = 16, 8, 256
+TRAIN_LG_ARGS = ["--model", "lightglue", "--steps", "64", "--batches-per-round",
+                 str(TRAIN_LG_BATCHES), "--epochs-per-round", "8"]
+# A checkpoint stores float16: the written SuperPoint's logits on a
+# north-star view within this share of their range of the trained module's.
+FP16_LOGIT_TOL = 1e-2
 
 # K1 at every shape the main path gives it: (stage, planes N, H, W, samples
 # per plane M, kind of points). PatchMatch: one keep_best evaluation, a batch
@@ -258,6 +284,9 @@ K1_SHAPES = [
     # SuperPoint (neural mode): one image's 256 coarse descriptor planes of
     # 60x80 sampled at its 2,048 keypoint slots, shared by all planes
     ("sparse_sfm", 256, 60, 80, 2048, "keypoints"),
+    # LightGlue's training (train_lightglue): one 128x128 image's 256 coarse
+    # descriptor planes of 16x16 at its 256 keypoint slots
+    ("train_lightglue", 256, 16, 16, 256, "keypoints"),
 ]
 K1_REPLACES = "recon3d_tpu/ops/warp_pallas.py:98"
 # Floating-point operations of one bilinear sample: 2 floor, 4 fraction
@@ -319,7 +348,8 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
     through the port's own projection (dense/tsdf.py); planes of depths in
     [3, 4.5] with 20% holes (0) and of confidence counts 0-4.
     kind "keypoints": SuperPoint's descriptor sampling. One set of points
-    for all N planes: 2,048 keypoints of a 480x640 image inside its 4-pixel
+    for all N planes: M keypoints of an 8H x 8W image (2,048 of 480x640 in
+    neural SfM, 256 of 128x128 in LightGlue's training) inside its 4-pixel
     border, in the cells' units, (x + 0.5) / 8 - 0.5; planes of unit
     descriptors.
     kind "uniform": uniform points over a margin around the image (every
@@ -1657,6 +1687,199 @@ def neural_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
     print("[neural chunk] " + json.dumps(bench), flush=True)
     return {"phase": "neural", "card": card, "cli": cli, "lightglue": lg, "chunk": bench}
 
+# SuperPoint's convolutions: name, in, out, kernel, the level's stride.
+SP_CONVS = (("conv1a", 1, 64, 3, 1), ("conv1b", 64, 64, 3, 1), ("conv2a", 64, 64, 3, 2),
+            ("conv2b", 64, 64, 3, 2), ("conv3a", 64, 128, 3, 4), ("conv3b", 128, 128, 3, 4),
+            ("conv4a", 128, 128, 3, 8), ("conv4b", 128, 128, 3, 8), ("convPa", 128, 256, 3, 8),
+            ("convPb", 256, 65, 1, 8), ("convDa", 128, 256, 3, 8), ("convDb", 256, 256, 1, 8))
+
+
+def superpoint_flops(H: int, W: int) -> float:
+    """Floating-point operations of SuperPoint's convolutions on one H x W
+    image (2 k^2 C_in C_out a pixel of each level); ReLU, pooling and the
+    descriptor normalisation are left out."""
+    return sum(2.0 * k * k * ci * co * (H // s) * (W // s) for _, ci, co, k, s in SP_CONVS)
+
+
+def _round_losses(stats: dict) -> np.ndarray:
+    return np.concatenate([np.asarray(r["losses"], np.float64) for r in stats["rounds"]])
+
+
+def _pretrain(args, out: Path, subprocess_run: bool = False) -> dict:
+    """The pretraining CLI (`python -m recon3d_tpu_torch.neural.pretrain`),
+    in a subprocess or in this process, writing `out` and its --stats-json;
+    returns the stats with the host's wall time."""
+    stats_path = out.with_suffix(".json")
+    argv = [*args, "--out", str(out), "--stats-json", str(stats_path)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if subprocess_run:
+        proc = subprocess.run([sys.executable, "-m", "recon3d_tpu_torch.neural.pretrain", *argv],
+                              cwd=str(REPO), capture_output=True, text=True, timeout=600)
+        print(proc.stdout[-2000:], end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"pretrain {args} returned {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+    else:
+        from recon3d_tpu_torch.neural.pretrain import main as pretrain_main
+
+        if pretrain_main(argv) != 0:
+            raise AssertionError(f"pretrain {args} failed")
+    torch.cuda.synchronize()
+    st = json.loads(stats_path.read_text())
+    st["host_wall_s"] = time.perf_counter() - t0
+    losses = _round_losses(st)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"pretrain {args}: non-finite losses")
+    return st
+
+
+def _round_times(st: dict) -> dict:
+    """A run's host seconds (rendering, pseudo-labels, extraction, ground
+    truth) and device seconds (the steps, timed to the loss read-back) over
+    its rounds, and the steps' rate."""
+    keys = ("render_s", "label_s", "extract_s", "ground_truth_s", "train_s")
+    t = {k: sum(r.get(k, 0.0) for r in st["rounds"]) for k in keys}
+    t["steps"] = steps = sum(r["steps"] for r in st["rounds"])
+    t["ms_a_step"] = 1e3 * t["train_s"] / steps
+    t["steps_per_s"] = steps / t["train_s"]
+    return t
+
+
+def train_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
+    """The neural front end's training path at full width: (a) SuperPoint
+    from scratch, one round of 12 batches x 16 epochs at batch 32 of
+    128x128 (the pretrain CLI in a subprocess); (b) the bundled fine-tune
+    recipe, one round of homographic adaptation from the bundled
+    checkpoint, whose .npz loads into NeuralMatcher with the trained
+    module's forward; (c) LightGlue, one round of 8 x 8 steps at batch 16
+    and 256 keypoints from the bundled SuperPoint, K1's counts set to 0
+    just before and read just after; (d) one SuperPoint and one LightGlue
+    step on the card against the CPU; (e) a public-layout LightGlue .pth
+    on the card against the same weights through the .npz path."""
+    from recon3d_tpu_torch import convert
+    from recon3d_tpu_torch.config import NeuralConfig
+    from recon3d_tpu_torch.neural.lightglue import LightGlueNet
+    from recon3d_tpu_torch.neural import pretrain
+    from recon3d_tpu_torch.neural.matcher import NeuralMatcher
+    from recon3d_tpu_torch.neural.weights import load_lightglue_torch, save_params_npz
+    from tests.torch_public_weights import lightglue_state_dict
+    from tests.torch_train_check import (
+        GRAD_TOL, LOSS_RTOL, card_against_cpu, lightglue_batch, lightglue_step, superpoint_step)
+
+    tdir = work / "train"
+    tdir.mkdir()
+    report = {"phase": "train", "card": card}
+
+    # (a) SuperPoint from scratch, through the module's entry point
+    st = _pretrain(TRAIN_SP_ARGS, tdir / "sp_scratch.npz", subprocess_run=True)
+    losses = _round_losses(st)[:, 0]
+    first, last = losses[:16].mean(), losses[-16:].mean()
+    flops = 2 * 32 * 3 * superpoint_flops(128, 128)   # 64 images, forward + backward
+    a = {**_round_times(st), "wall_s": st["wall_s"], "process_wall_s": st["host_wall_s"],
+         "peak_bytes": st["peak_bytes"], "loss_first16": first, "loss_last16": last,
+         "k1": st["k1_calls_by_stage"], "gflop_a_step": flops / 1e9,
+         }
+    a["tflop_s"] = flops / (a["ms_a_step"] * 1e-3) / 1e12
+    a["share_of_f32_peak"] = a["tflop_s"] * 1e12 / F32_OPS_PER_S
+    print("[train superpoint] " + json.dumps(a), flush=True)
+    if not last < first:
+        raise AssertionError(f"train superpoint: the last 16 steps' loss {last:.4f} is not "
+                             f"below the first 16 steps' {first:.4f}")
+    if st["k1_calls_by_stage"]["train_superpoint"]["kernel"] != 0:
+        raise AssertionError("train superpoint: K1 launched (dense descriptors need none)")
+    report["superpoint"] = a
+
+    # (b) the bundled fine-tune recipe, one round, through pretrain.run (the
+    # CLI's own entry), so that the trained module is at hand
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out = pretrain.run(pretrain.build_parser().parse_args(
+        [*TRAIN_FINETUNE_ARGS, "--out", str(tdir / "sp_finetune.npz")]), stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not np.isfinite(_round_losses(stats)).all():
+        raise AssertionError("train finetune: non-finite losses")
+    gray = scene["images"][0] @ np.array([0.299, 0.587, 0.114], np.float32)
+    x = torch.from_numpy(np.ascontiguousarray(gray))[None, ..., None].cuda()
+    nm = NeuralMatcher(NeuralConfig(superpoint_weights=str(out)), device="cuda")
+    nm._ensure_params()
+    with torch.no_grad():
+        lt, dt = state.module(x)
+        ln, dn = nm.sp(x)
+    rng_l = float(lt.max() - lt.min())
+    logit_err = float((ln - lt).abs().max()) / rng_l
+    cos = (dn * dt).sum(-1)
+    b = {**_round_times(stats), "wall_s": wall, "logit_err_of_range": logit_err,
+         "desc_cos_min": float(cos.min()), "desc_cos_share_999": float((cos >= 0.999).float()
+                                                                       .mean()),
+         "loss_last": _round_losses(stats)[-1].tolist()}
+    print("[train finetune] " + json.dumps(b), flush=True)
+    if not (logit_err < FP16_LOGIT_TOL and b["desc_cos_share_999"] >= 0.99):
+        raise AssertionError(f"train finetune: the written .npz's forward differs from the "
+                             f"trained module's beyond float16 storage: {b}")
+    report["finetune"] = b
+
+    # (c) LightGlue, one round at full width, K1 counted
+    warp.counts.reset()
+    st = _pretrain(TRAIN_LG_ARGS, tdir / "lightglue.npz")
+    launches, plain, by_shape = warp.counts.kernel, warp.counts.plain, dict(warp.counts.by_shape)
+    k1 = st["k1_calls_by_stage"]
+    check_k1_shapes(k1, shapes, "train lightglue")
+    key = next(sh["shape_key"] for sh in shapes if sh["stage"] == "train_lightglue")
+    images = 2 * TRAIN_LG_PAIRS * TRAIN_LG_BATCHES
+    if launches != images or plain != 0 or by_shape != {key: images}:
+        raise AssertionError(f"train lightglue: K1 launched {launches} times ({by_shape}), plain "
+                             f"{plain}; expected {images} at {key}")
+    gt = [r["gt_matches_per_pair"] for r in st["rounds"]]
+    flops = 3 * TRAIN_LG_PAIRS * lightglue_flops(TRAIN_KEYPOINTS, 256, 9)
+    c = {**_round_times(st), "wall_s": st["wall_s"], "peak_bytes": st["peak_bytes"],
+         "gt_matches_per_pair": gt, "k1_launches": launches, "k1_plain_calls": plain,
+         "k1": k1, "loss_last": _round_losses(st)[-1].tolist(), "gflop_a_step": flops / 1e9}
+    c["tflop_s"] = flops / (c["ms_a_step"] * 1e-3) / 1e12
+    c["share_of_f32_peak"] = c["tflop_s"] * 1e12 / F32_OPS_PER_S
+    print("[train lightglue] " + json.dumps(c), flush=True)
+    if not min(gt) > 0:
+        raise AssertionError(f"train lightglue: no ground-truth match in a round ({gt})")
+    report["lightglue"] = c
+
+    # (d) one step of each on the card against the CPU
+    d = {"superpoint": card_against_cpu(superpoint_step, "cuda"),
+         "lightglue": card_against_cpu(lightglue_step, "cuda")}
+    print("[train card-vs-cpu] " + json.dumps(
+        {k: {f: v[f] for f in ("loss_rel_err", "grad_rel_err", "grad_worst")}
+         for k, v in d.items()}), flush=True)
+    for name, r in d.items():
+        if not (r["finite"] and r["loss_rel_err"] < LOSS_RTOL and r["grad_rel_err"] < GRAD_TOL):
+            raise AssertionError(f"train card-vs-cpu {name}: losses {r['loss_rel_err']:.2e} "
+                                 f"(< {LOSS_RTOL}), gradients {r['grad_rel_err']:.2e} at "
+                                 f"{r['grad_worst']} (< {GRAD_TOL})")
+    report["card_vs_cpu"] = d
+
+    # (e) a public LightGlue .pth on the card, against the same weights
+    # through save_params_npz and the .npz path (the file's values are
+    # float16-exact, so both carry identical weights)
+    pth = tdir / "lightglue_public.pth"
+    torch.save(lightglue_state_dict(seed=3), pth)
+    from_pth = load_lightglue_torch(pth, LightGlueNet()).cuda().eval()
+    save_params_npz(from_pth, str(tdir / "lightglue_public.npz"))
+    from_npz = convert.load_params_npz(tdir / "lightglue_public.npz", LightGlueNet()).cuda().eval()
+    data = lightglue_batch(np.random.default_rng(3), 1, 2, TRAIN_KEYPOINTS, 256)
+    args = [torch.from_numpy(data[k][0]).cuda()
+            for k in ("desc0", "desc1", "xy0n", "xy1n", "valid0", "valid1")]
+    with torch.no_grad():
+        la, m0, _ = from_pth(*args)
+        lb, n0, _ = from_npz(*args)
+    torch.cuda.synchronize()
+    e = {"identical": bool(torch.equal(la, lb) and torch.equal(m0, n0)),
+         "finite": bool(torch.isfinite(la[args[4][..., None] & args[5][:, None]]).all())}
+    print("[train pth] " + json.dumps(e), flush=True)
+    if not (e["identical"] and e["finite"]):
+        raise AssertionError(f"train pth: the .pth and .npz paths differ on the card: {e}")
+    report["pth"] = e
+    return report
+
 
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
@@ -1705,29 +1928,35 @@ def main() -> int:
         ckpt = phase("checkpoint", checkpoint_phase, work, card)
         gsfm = phase("global_sfm", global_sfm_phase, work, scene, card, shapes)
         neural = phase("neural", neural_phase, work, scene, card, shapes)
+        trained = phase("train", train_phase, work, scene, card, shapes)
     phase("rescue", rescue_phase, card)
     phase("dense_sift_budget", dense_sift_budget, card)
     print("[time] phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # Launches at each shape of the kernel phase: on the main path
-    # (cli_images), and on this slice's neural path (SuperPoint's shape).
+    # (cli_images), on the neural path (SuperPoint's shape) and on the
+    # training path (LightGlue's training shape).
     neural_k1 = neural["cli"]["k1_by_stage"]
+    train_k1 = trained["lightglue"]["k1"]
     for sh in shapes:
-        sh["launches"] = images["k1_by_stage"].get(sh["stage"], {}).get(
-            "kernel_by_shape", {}).get(sh["shape_key"], 0)
-        sh["neural_run_launches"] = neural_k1.get(sh["stage"], {}).get(
-            "kernel_by_shape", {}).get(sh["shape_key"], 0)
-    unseen = [sh["shape_key"] for sh in shapes
-              if sh["launches"] == 0 and sh["neural_run_launches"] == 0]
+        for key, by_stage in (("launches", images["k1_by_stage"]),
+                              ("neural_run_launches", neural_k1),
+                              ("train_run_launches", train_k1)):
+            sh[key] = by_stage.get(sh["stage"], {}).get("kernel_by_shape", {}).get(
+                sh["shape_key"], 0)
+    unseen = [sh["shape_key"] for sh in shapes if sh["launches"] == 0
+              and sh["neural_run_launches"] == 0 and sh["train_run_launches"] == 0]
     if unseen:
         raise AssertionError(f"the main paths never launched K1 at the kernel phase's "
-                             f"shapes {unseen}: {images['k1_by_stage']}, {neural_k1}")
+                             f"shapes {unseen}: {images['k1_by_stage']}, {neural_k1}, "
+                             f"{train_k1}")
     # every launch at a kernel-phase shape, in the variant the planner
-    # picks there (the neural run's were checked in its phase)
+    # picks there (the neural and training runs' were checked in their phases)
     check_k1_shapes(images["k1_by_stage"], shapes, "cli_images")
     by_variant = {}
-    for st in list(images["k1_by_stage"].values()) + list(neural_k1.values()):
+    for st in (list(images["k1_by_stage"].values()) + list(neural_k1.values())
+               + list(train_k1.values())):
         for v, n in st["kernel_by_variant"].items():
             by_variant[v] = by_variant.get(v, 0) + n
     head = shapes[0]
@@ -1749,7 +1978,8 @@ def main() -> int:
     kernels = [{
         "name": "tent_warp", "route": "cuda",
         "source": "recon3d_tpu_torch/csrc/warp.cu", "replaces": K1_REPLACES,
-        "launches": images["k1_launches"] + neural["cli"]["k1_launches"],
+        "launches": (images["k1_launches"] + neural["cli"]["k1_launches"]
+                     + trained["lightglue"]["k1_launches"]),
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1761,6 +1991,7 @@ def main() -> int:
                                     for name, r in ckpt["runs"].items()},
         "neural_run_launches": neural_k1,
         "global_sfm_run_launches": gsfm["cli"]["k1_by_stage"],
+        "train_run_launches": train_k1,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -163,21 +163,6 @@ def load_from_colmap(model_dir: str, image_dir: str, cfg, max_images=None,
     return iset, points, colors, poses
 
 
-@contextlib.contextmanager
-def _k1_calls(by_stage: dict, name: str):
-    """Record K1's launches (in all, by shape and by variant) and
-    plain-version calls inside the block under `name` (the counts of
-    kernels/warp.py), for --stats-json."""
-    from recon3d_tpu_torch.kernels.warp import counts
-
-    k0, p0 = counts.kernel, counts.plain
-    s0, v0 = counts.by_shape.copy(), counts.by_variant.copy()
-    yield
-    by_stage[name] = {"kernel": counts.kernel - k0, "plain": counts.plain - p0,
-                      "kernel_by_shape": dict(counts.by_shape - s0),
-                      "kernel_by_variant": dict(counts.by_variant - v0)}
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     missing = unported_modes(args)
@@ -236,6 +221,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
     from recon3d_tpu_torch.camera import CameraPose, stack_poses
     from recon3d_tpu_torch.config import ReconstructionConfig
     from recon3d_tpu_torch.io.ply import save_cameras_ply, save_ply
+    from recon3d_tpu_torch.kernels.warp import record_launches
 
     cfg = ReconstructionConfig.fast() if args.fast else ReconstructionConfig()
     cfg = cfg.replace(sfm=dataclasses.replace(cfg.sfm, seed=args.seed))
@@ -279,7 +265,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
             device=device,
         )
         # SuperPoint samples its descriptors through K1
-        k1_sparse = (_k1_calls(k1_calls, "sparse_sfm") if args.neural
+        k1_sparse = (record_launches(k1_calls, "sparse_sfm") if args.neural
                      else contextlib.nullcontext())
         with timer.stage("sparse_sfm"), k1_sparse:
             if ckpt and ckpt.restore_sparse(pipeline):
@@ -333,7 +319,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
         from recon3d_tpu_torch.dense.patchmatch import PatchMatchMVS
 
         want_maps = args.mesh and not mesh_from_stereo
-        with timer.stage("patchmatch_mvs"), _k1_calls(k1_calls, "patchmatch_mvs"):
+        with timer.stage("patchmatch_mvs"), record_launches(k1_calls, "patchmatch_mvs"):
             rec = PatchMatchMVS(camera, cfg.patchmatch, device=device)
             out = rec.reconstruct(
                 images, poses, sparse_points=points, checkpointer=ckpt,
@@ -356,7 +342,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
     if will_stereo:
         from recon3d_tpu_torch.dense.plane_sweep import PlaneSweepReconstructor
 
-        with timer.stage("plane_sweep"), _k1_calls(k1_calls, "plane_sweep"):
+        with timer.stage("plane_sweep"), record_launches(k1_calls, "plane_sweep"):
             rec = PlaneSweepReconstructor(camera, cfg.plane_sweep, device=device)
             out = rec.reconstruct(
                 images, poses, sparse_points=points, return_maps=mesh_from_stereo,
@@ -382,7 +368,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
         dp, dc = mesh_cloud
         tsdf_s = {}
         with timer.stage("tsdf_mesh"):
-            with _k1_calls(k1_calls, "tsdf_mesh"):
+            with record_launches(k1_calls, "tsdf_mesh"):
                 vol = fuse_tsdf(
                     mesh_maps["depth"], mesh_maps["conf"],
                     mesh_maps["K"], mesh_maps["Rs"], mesh_maps["ts"],

@@ -8,7 +8,8 @@ of them from plain Python and numpy values (never JAX objects), so that
 both packages can run one configuration (dataclasses.asdict of a
 recon3d_tpu ReconstructionConfig, np.asarray of its Camera's K and dist),
 share one checkpoint of SuperPoint and LightGlue (the '/'-keyed .npz files
-that the JAX package's neural/weights.save_params_npz writes), hand one
+that either package's neural/weights.save_params_npz writes, or a public
+torch .pth), hand one
 another's features to their matchers and continue one another's
 reconstructions.
 """
@@ -249,23 +250,28 @@ def flax_to_state_dict(flat: Dict[str, np.ndarray], module: torch.nn.Module
     return out
 
 
-def read_params_npz(path) -> Dict[str, np.ndarray]:
-    """The flat '/'-keyed arrays of a save_params_npz checkpoint. A torch
-    .pth checkpoint raises NotImplementedError: its converters (the JAX
-    package's neural/weights.py) are not ported yet (ROADMAP.md, section 1,
-    item 11)."""
+def read_params_npz(path, module: Optional[torch.nn.Module] = None) -> Dict[str, np.ndarray]:
+    """The flat '/'-keyed Flax parameters of a checkpoint, by its suffix as
+    the JAX matcher dispatches (recon3d_tpu/neural/matcher.py:107-143): a
+    save_params_npz .npz file as stored; any other file is a torch
+    checkpoint in the public layout of `module` (a SuperPointNet or a
+    LightGlueNet), converted by neural/weights.py."""
     path = Path(path)
     if path.suffix != ".npz":
-        raise NotImplementedError(
-            f"{path.name}: torch checkpoint conversion is not ported yet "
-            "(ROADMAP.md, section 1, item 11); pass a save_params_npz .npz file")
+        if module is None:
+            raise ValueError(f"{path.name}: a torch checkpoint is converted for the module "
+                             "it fills; pass module=")
+        from recon3d_tpu_torch.neural.weights import flax_from_torch
+
+        return flax_from_torch(path, module)
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
 
 
 def load_params_npz(path, module: torch.nn.Module) -> torch.nn.Module:
-    """Load a save_params_npz checkpoint into `module` in place, through
-    flax_to_state_dict: every key of the file consumed, every parameter
-    set."""
-    module.load_state_dict(flax_to_state_dict(read_params_npz(path), module), strict=True)
+    """Load a checkpoint (a save_params_npz .npz or a public torch .pth)
+    into `module` in place, through flax_to_state_dict: every key of the
+    file consumed, every parameter set."""
+    flat = read_params_npz(path, module)
+    module.load_state_dict(flax_to_state_dict(flat, module), strict=True)
     return module

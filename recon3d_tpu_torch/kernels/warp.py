@@ -8,6 +8,9 @@ the note at the top of csrc/warp.cu for what bounds it and why it is a
 
 `tent_warp` is the wrapper: a CPU tensor goes to `tent_warp_reference`,
 the plain PyTorch version; a CUDA tensor launches the kernel or raises.
+K1 is forward only, as the JAX kernel (no custom_vjp): on the card the
+wrapper refuses inputs that require grad while grad mode is on, where the
+plain version on the CPU would differentiate.
 `counts` records how often each of the two ran. `plan_launch`, a pure
 function of the shapes and the coordinate pointer's alignment, picks the
 kernel's variant (own or shared points, taps from L1/L2 or from shared
@@ -20,6 +23,7 @@ and flags, so nothing is ever built when this module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -179,6 +183,19 @@ def plan_launch(N: int, H: int, W: int, Nc: int, M: int, coords_align: int,
 
 counts = LaunchCounts()
 _lib = None
+
+
+@contextlib.contextmanager
+def record_launches(by_stage: dict, name: str):
+    """Record `counts`' change inside the block under by_stage[name]: the
+    kernel's launches (in all, by shape and by variant) and the plain
+    version's calls (the CLIs' --stats-json)."""
+    k0, p0 = counts.kernel, counts.plain
+    s0, v0 = counts.by_shape.copy(), counts.by_variant.copy()
+    yield
+    by_stage[name] = {"kernel": counts.kernel - k0, "plain": counts.plain - p0,
+                      "kernel_by_shape": dict(counts.by_shape - s0),
+                      "kernel_by_variant": dict(counts.by_variant - v0)}
 
 
 def _nvcc() -> str:
@@ -351,6 +368,11 @@ def tent_warp(
         return tent_warp_reference(planes, coords, fill)
     if planes.device.type != "cuda":
         raise ValueError(f"tent_warp: unsupported device {planes.device}")
+    if torch.is_grad_enabled() and (planes.requires_grad or coords.requires_grad):
+        raise RuntimeError(
+            "tent_warp: K1 has no backward (the JAX kernel defines none either); the "
+            "kernel's result would carry no gradient. Call it under torch.no_grad() or "
+            "on inputs that do not require grad")
     if not (planes.is_contiguous() and coords.is_contiguous()):
         raise ValueError("tent_warp: planes and coords must be contiguous")
     if coords.data_ptr() % 8:

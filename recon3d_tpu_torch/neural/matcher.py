@@ -9,8 +9,9 @@ features/frontend.match_pairs_batched, so that SfMPipeline swaps front
 ends without other changes.
 
 Weights: NeuralConfig.superpoint_weights / lightglue_weights may name a
-.npz checkpoint of the JAX package's format (convert.load_params_npz);
-torch .pth files are not converted yet (ROADMAP.md, section 1, item 11).
+.npz checkpoint of the JAX package's format (either package's
+save_params_npz) or a public torch .pth, told apart by the suffix as the
+JAX matcher does (convert.read_params_npz, neural/weights.py).
 Without them SuperPoint reads the JAX package's bundled checkpoint in
 place (recon3d_tpu/neural/pretrained/, resolved from the repository root:
 a data file, not an import), and matcher="auto" resolves to mutual-NN
@@ -41,6 +42,7 @@ from recon3d_tpu_torch.neural.superpoint import (
     detect_keypoints,
     scores_from_logits,
 )
+from recon3d_tpu_torch.neural.weights import flax_init_
 from recon3d_tpu_torch.ops.estimation import estimate_fundamental_ransac
 from recon3d_tpu_torch.ops.match import MatchResult, match_descriptors
 from recon3d_tpu_torch.runtime.device import resolve_device
@@ -60,25 +62,11 @@ def _read_cached(path: str, mtime: float) -> Dict[str, np.ndarray]:
 
 
 def _load(path: Path, module: torch.nn.Module) -> None:
-    flat = _read_cached(str(path), path.stat().st_mtime if path.exists() else 0.0)
+    if path.suffix == ".npz":
+        flat = _read_cached(str(path), path.stat().st_mtime if path.exists() else 0.0)
+    else:
+        flat = read_params_npz(path, module)   # a torch .pth, converted for the module
     module.load_state_dict(flax_to_state_dict(flat, module), strict=True)
-
-
-def _init_params(module: torch.nn.Module, generator: torch.Generator) -> None:
-    """Parameters drawn from an explicit generator (a network used without
-    a checkpoint): weights normal with std 1/sqrt(fan_in), biases zero,
-    LayerNorm scales one, LightGlue's rotary frequencies standard normal."""
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            if name.endswith("rotary_freqs"):
-                p.copy_(torch.randn(p.shape, generator=generator))
-            elif name.endswith(".bias"):
-                p.zero_()
-            elif p.dim() == 1:
-                p.fill_(1.0)
-            else:
-                fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=generator) / fan_in ** 0.5)
 
 
 class NeuralMatcher:
@@ -91,7 +79,7 @@ class NeuralMatcher:
         self.match_config = match_config or MatchConfig()
         self.device = resolve_device(device)
         # built without storage (no draw from the global generator); the
-        # parameters come from the checkpoints or _init_params
+        # parameters come from the checkpoints or flax_init_
         with torch.device("meta"):
             self.sp = SuperPointNet(descriptor_dim=self.config.descriptor_dim)
             self.lg = LightGlueNet(dim=self.config.descriptor_dim,
@@ -114,7 +102,7 @@ class NeuralMatcher:
         gen = torch.Generator().manual_seed(0)
         for module in (self.sp, self.lg):
             module.to_empty(device="cpu")
-            _init_params(module, gen)
+            flax_init_(module, gen)
         cfg = self.config
         if cfg.superpoint_weights:
             _load(Path(cfg.superpoint_weights), self.sp)

@@ -59,6 +59,26 @@ from recon3d_tpu_torch.neural import NeuralMatcher
 from recon3d_tpu_torch.config import NeuralConfig
 nf = NeuralMatcher(NeuralConfig(max_keypoints=64), device="cpu").extract(g[0].repeat(2, 0).repeat(2, 1))
 assert nf.desc.shape == (64, 256) and torch.isfinite(nf.desc).all()
+import recon3d_tpu_torch.neural.pretrain
+from recon3d_tpu_torch.convert import load_params_npz
+from recon3d_tpu_torch.neural.superpoint import SuperPointNet
+from recon3d_tpu_torch.neural.synthetic import make_pair_batch_compact
+from recon3d_tpu_torch.neural.train import Adam, TrainState, _lightglue_loss, make_epoch_train_fn
+from recon3d_tpu_torch.neural.weights import flax_init_, save_params_npz
+cb = make_pair_batch_compact(np.random.default_rng(0), 2, (32, 32))
+net = flax_init_(SuperPointNet(), torch.Generator().manual_seed(0))
+tx = Adam(1e-3)
+_, losses = make_epoch_train_fn(net, tx, epochs=1)(
+    TrainState(net, tx.init(net.parameters())), {k: torch.from_numpy(v[None]) for k, v in cb.items()})
+assert losses.shape == (1, 3) and torch.isfinite(losses).all()
+la = torch.log_softmax(torch.randn(1, 5, 4), -1)
+lg = _lightglue_loss(la, torch.rand(1, 5), torch.rand(1, 4), torch.tensor([[0, 0, -1, -2, 3]]),
+                     torch.ones(1, 5, dtype=torch.bool), torch.ones(1, 4, dtype=torch.bool))
+assert all(torch.isfinite(v).all() for v in lg)
+with tempfile.TemporaryDirectory() as tmp:
+    save_params_npz(net, tmp + "/sp.npz")
+    back = load_params_npz(tmp + "/sp.npz", SuperPointNet())
+    assert torch.equal(back.conv1a.weight, net.conv1a.weight.half().float())
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "recon3d_tpu"
              or m.startswith("recon3d_tpu."))

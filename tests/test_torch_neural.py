@@ -36,8 +36,10 @@ from recon3d_tpu_torch.neural.matcher import (
     BUNDLED_SUPERPOINT,
     NeuralMatcher,
 )
+from recon3d_tpu_torch.neural.weights import save_params_npz
 from recon3d_tpu_torch.sfm.pipeline import SfMPipeline
 from tests.render import render_views
+from tests.torch_public_weights import superpoint_state_dict
 
 torch.set_num_threads(2)
 
@@ -117,10 +119,23 @@ def test_weight_conversion_refuses_incomplete_or_foreign_files(tmp_path):
         convert.flax_to_state_dict({**flat, "params/conv9/bias": np.zeros(3)}, net)
     with pytest.raises(ValueError, match="shape mismatch"):
         convert.flax_to_state_dict(flat, tsp.SuperPointNet(descriptor_dim=128))
+    # a torch .pth in the public layout loads through convert and NeuralMatcher
+    # (the suffix decides, as in the JAX matcher) and gives the forward of
+    # the same weights written as an .npz
+    torch.save(superpoint_state_dict(), tmp_path / "sp.pth")
+    save_params_npz(convert.load_params_npz(tmp_path / "sp.pth", tsp.SuperPointNet()),
+                    str(tmp_path / "sp.npz"))
+    img = np.random.default_rng(2).random((64, 64)).astype(np.float32)
+    feats = [NeuralMatcher(NeuralConfig(superpoint_weights=str(tmp_path / name),
+                                        max_keypoints=64), device="cpu").extract(img)
+             for name in ("sp.pth", "sp.npz")]
+    for f in ("xy", "score", "desc", "valid"):
+        assert torch.equal(getattr(feats[0], f), getattr(feats[1], f)), f
+    # an empty .pth still raises, with torch's own load error
     (tmp_path / "w.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        convert.read_params_npz(tmp_path / "w.pth")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(EOFError):
+        convert.read_params_npz(tmp_path / "w.pth", tsp.SuperPointNet())
+    with pytest.raises(EOFError):
         NeuralMatcher(NeuralConfig(superpoint_weights=str(tmp_path / "w.pth")),
                       device="cpu").extract(np.zeros((64, 64), np.float32))
 
