@@ -89,7 +89,17 @@ Phases, each of which passes or raises:
      training shape, 0 plain; (d) one SuperPoint and one LightGlue step on
      the card against the CPU (tests/torch_train_check.py); (e) a public
      LightGlue .pth on the card, bit for bit the forward of the same
-     weights through save_params_npz and the .npz path.
+     weights through save_params_npz and the .npz path;
+ 18. multi_device: the mesh of recon3d_tpu_torch/parallel/ on the first 16
+     north-star views (tests/torch_mesh_check.py): (a) a world of 1 over
+     NCCL, where distributed_patchmatch, distributed_plane_sweep, the
+     sharded TSDF and the sharded BA are bit-identical to one device; (b)
+     a world of 2 sharing the card over gloo: the same four within the JAX
+     mesh tests' bounds, match_pairs_batched's shards bit for bit, one
+     make_pair_train_step step within 1e-5 relative, K1's launches by rank
+     (both non-zero, no plain call) and the gloo all_reduce of a TSDF grid
+     timed; (c) part (b) over NCCL when two cards are visible, else one
+     line saying why it did not run.
 
 Every phase's wall time is printed, and their total, before the JSON lines.
 
@@ -1881,6 +1891,117 @@ def train_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
     return report
 
 
+MD_VIEWS = 16   # the multi_device phase's cut of the north star
+MD_GRIDS = {"tsdf_128": 2 * 128 ** 3, "tsdf_192": 2 * 192 ** 3}   # numerator + weight
+
+
+def multi_device_phase(scene: dict, card: str, parts: str = "abc") -> dict:
+    """The mesh (recon3d_tpu_torch/parallel/) on the one card, with the
+    checks of tests/torch_mesh_check.py on the first MD_VIEWS north-star
+    views at PatchMatch's scale and a 16-camera BA problem:
+    (a) a world of 1 over NCCL: distributed_patchmatch, distributed_plane_
+        sweep, fuse_tsdf(mesh=) and bundle_adjust(mesh=) bit-identical to
+        one device;
+    (b) a world of 2 sharing the card over gloo: the same four within the
+        JAX mesh tests' bounds (PatchMatch's on the north-star cut and on
+        that test's scene), match_pairs_batched bit-equal to one device,
+        two make_pair_train_step steps (losses 1e-5 then 5e-3 relative,
+        the first step's gradients within GRAD_TOL), K1 launched on both
+        ranks (its plain version never), and the gloo all_reduce of a
+        TSDF grid timed;
+    (c) part (b) over NCCL on two cards, when two are visible."""
+    from recon3d_tpu_torch.features.frontend import FeatureExtractor
+    from recon3d_tpu_torch.parallel import make_mesh
+    from recon3d_tpu_torch.parallel.workers import time_all_reduce
+    from tests import torch_mesh_check as check
+
+    inp = check.dense_inputs(scene, n_views=MD_VIEWS, scale=0.25)
+    small = check.small_inputs()
+    prob = check.ba_problem(0)
+    gray = np.stack([im.mean(-1) for im in scene["images"][:8]]).astype(np.float32)
+    feats = FeatureExtractor(device="cuda").extract_batch(gray)
+    pairs = [(i, j) for i in range(8) for j in range(i + 1, min(8, i + 4))]
+    out = {}
+    if "a" in parts:
+        out["a"] = world_of_one(inp, prob)
+    else:
+        print("[multi_device] (a) not asked for", flush=True)
+
+    def world_of_two(**mesh_kw):
+        launches = {}
+        t0 = time.perf_counter()
+        with make_mesh(devices=2, device="cuda", **mesh_kw) as mesh:
+            t_up = time.perf_counter() - t0
+            dense = check.check_dense(mesh, inp, "cuda", exact=False, launches=launches)
+            dense["patchmatch_small_scene"] = check.check_patchmatch_bound(mesh, small, "cuda")
+            ba = check.check_ba(mesh, prob, "cuda", exact=False)
+            match = check.check_matching(mesh, feats, pairs, "cuda")
+            train = check.check_train_step(mesh, "cuda")
+            reduce_ms = {name: mesh.call(time_all_reduce, [{"n": n, "iters": 5}] * 2)[0]
+                         for name, n in MD_GRIDS.items()}
+            backend = mesh.backend
+        by_rank = {stage: [{"kernel": r["kernel"], "plain": r["plain"]}
+                           for r in rec["by_rank"]] for stage, rec in launches.items()}
+        for stage, ranks in by_rank.items():
+            if not all(r["kernel"] > 0 and r["plain"] == 0 for r in ranks):
+                raise AssertionError(f"K1 on the mesh's ranks in {stage}: {ranks}")
+        step_ms = {k: 1e3 * ba[k]["solve_fetch_s"] / max(ba[k]["iterations"], 1)
+                   for k in ("single", "mesh")}
+        return {"backend": backend, "wall_s": time.perf_counter() - t0, "spawn_s": t_up,
+                "dense": dense, "ba": {k: v for k, v in ba.items() if k.endswith("err")},
+                "ba_ms_per_iteration": step_ms, "match": match, "train": train,
+                "all_reduce_ms": reduce_ms, "k1_by_rank": by_rank}
+
+    if "b" not in parts:
+        print("[multi_device] (b) not asked for", flush=True)
+    else:
+        out["b"] = world_of_two(share_device=True)
+        _print_b(out["b"])
+    if "c" not in parts:
+        print("[multi_device] (c) not asked for", flush=True)
+    elif torch.cuda.device_count() >= 2:
+        out["c"] = world_of_two()
+        _print_b(out["c"], "(c) world 2 on two cards")
+    else:
+        out["c"] = None
+        print(f"[multi_device] (c) not run: {torch.cuda.device_count()} CUDA device "
+              "visible, and part (b) over NCCL needs two cards", flush=True)
+    return out
+
+
+def world_of_one(inp: dict, prob: tuple) -> dict:
+    """Part (a) of the multi_device phase: a world of 1 over NCCL."""
+    from recon3d_tpu_torch.parallel import make_mesh
+    from tests import torch_mesh_check as check
+
+    t0 = time.perf_counter()
+    with make_mesh(devices=1, device="cuda") as mesh:
+        if mesh.backend != "nccl":
+            raise AssertionError(f"(a): a world of 1 on the card runs over {mesh.backend}")
+        dense = check.check_dense(mesh, inp, "cuda", exact=True)
+        ba = check.check_ba(mesh, prob, "cuda", exact=True)
+    out = {"wall_s": time.perf_counter() - t0, "dense": dense,
+           "ba_iterations": ba["mesh"]["iterations"]}
+    print(f"[multi_device] (a) world 1, NCCL: PatchMatch, sweep, TSDF and BA bit-identical "
+          f"to one device ({out['wall_s']:.1f} s)", flush=True)
+    return out
+
+
+def _print_b(b: dict, what: str = "(b) world 2 sharing the card, gloo") -> None:
+    print(f"[multi_device] {what} ({b['backend']}): PatchMatch bit-equal "
+          f"{b['dense']['patchmatch_bit_equal']}, {b['dense']['patchmatch_agree_2e-3']:.4f} of "
+          f"pixels within 2e-3 of the {MD_VIEWS}-view batch, "
+          f"{b['dense']['patchmatch_small_scene']['agree_2e-3']:.4f} on the JAX test's scene; "
+          f"sweep bit-equal {b['dense']['sweep_bit_equal']}; TSDF "
+          f"{b['dense']['tsdf_max_abs_err']:.2e}, BA points {b['ba']['points_max_abs_err']:.2e}, "
+          f"matching over {b['match']['pairs']} pairs bit-equal; train losses "
+          f"{b['train']['rel_err']} relative (steps 1, 2), gradients "
+          f"{b['train']['grad_max_rel_l2']:.2e} (relative L2, worst tensor); "
+          f"K1 by rank {b['k1_by_rank']}; "
+          f"all_reduce ms {b['all_reduce_ms']}; BA ms/iteration {b['ba_ms_per_iteration']} "
+          f"({b['wall_s']:.1f} s, {b['spawn_s']:.1f} s to start the ranks)", flush=True)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
@@ -1929,6 +2050,7 @@ def main() -> int:
         gsfm = phase("global_sfm", global_sfm_phase, work, scene, card, shapes)
         neural = phase("neural", neural_phase, work, scene, card, shapes)
         trained = phase("train", train_phase, work, scene, card, shapes)
+        md = phase("multi_device", multi_device_phase, scene, card)
     phase("rescue", rescue_phase, card)
     phase("dense_sift_budget", dense_sift_budget, card)
     print("[time] phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -1992,6 +2114,7 @@ def main() -> int:
         "neural_run_launches": neural_k1,
         "global_sfm_run_launches": gsfm["cli"]["k1_by_stage"],
         "train_run_launches": train_k1,
+        "multi_device_run_launches_by_rank": md["b"]["k1_by_rank"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

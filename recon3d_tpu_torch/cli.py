@@ -11,7 +11,14 @@ CLI's files: sparse.ply, cameras.ply, poses.npz, sparse_colmap/
 (dense SIFT: --dense, or --combined, which also runs the sweep). With
 --checkpoint-dir it saves the sparse state and each PatchMatch depth map
 and resumes from them; --profile writes a torch.profiler trace of the run.
-The modes not ported yet exit non-zero, naming their ROADMAP item.
+
+--devices N runs on a data-parallel mesh of N devices (parallel/mesh.py;
+0 takes every visible GPU): pair matching, bundle adjustment, PatchMatch,
+the plane sweep and the TSDF fusion shard over it, as the JAX CLI's mesh
+does (recon3d_tpu/cli.py:187-203). The CLI starts the other ranks itself.
+On "cuda" N is capped at the visible GPUs; on "cpu" N asks for N CPU
+ranks. The default is 1, one device, where the JAX CLI takes every
+device: on two GPUs the mesh has run slower than one GPU so far.
 
 Run as `python -m recon3d_tpu_torch.cli <image_dir> --mvs [--mesh] [--stereo]`.
 """
@@ -64,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write a device trace to this directory")
     p.add_argument("--stats-json", type=str, default=None,
                    help="Write pipeline statistics + stage timings to a JSON file")
-    p.add_argument("--devices", type=int, default=0,
-                   help="Max devices to use (0 = all; 1 disables the mesh)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="Max devices to use, data-parallel (1, the default: one "
+                        "device, no mesh; 0 = every visible GPU)")
     p.add_argument("--global-sfm", action="store_true",
                    help="Global SfM (rotation/translation averaging over "
                         "the whole pose graph) instead of incremental "
@@ -85,18 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Device to run on (default cuda; an error if no GPU)")
     return p
-
-
-def unported_modes(args) -> list:
-    """The requested modes this port cannot run yet, each with its item in
-    ROADMAP.md, section 1."""
-    return [
-        f"{flag} (ROADMAP.md, section 1, item {item})"
-        for flag, on, item in [
-            ("--devices > 1", args.devices > 1, 12),
-        ]
-        if on
-    ]
 
 
 def resolve_dataset(dataset: str) -> Path:
@@ -165,16 +161,10 @@ def load_from_colmap(model_dir: str, image_dir: str, cfg, max_images=None,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    missing = unported_modes(args)
-    if missing:
-        raise SystemExit(
-            "ERROR: not yet ported to recon3d_tpu_torch: "
-            + ", ".join(missing)
-            + " (run the JAX package's CLI, python -m recon3d_tpu.cli, for these)"
-        )
 
     import torch
 
+    from recon3d_tpu_torch.parallel.mesh import data_parallel_mesh, mesh_devices
     from recon3d_tpu_torch.runtime.device import resolve_device
     from recon3d_tpu_torch.runtime.profiling import StageTimer, maybe_trace
 
@@ -196,8 +186,14 @@ def main(argv=None) -> int:
 
     timer = StageTimer()
     k1_calls = {}
-    with maybe_trace(args.profile, device):
-        stats, points = _run(args, device, image_dir, output_dir, timer, k1_calls)
+    n_dev = mesh_devices(args.devices, device)
+    mesh = data_parallel_mesh(n_dev, device)
+    try:
+        with maybe_trace(args.profile, device):
+            stats, points = _run(args, device, image_dir, output_dir, timer, k1_calls, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
     timer.report()
     if args.stats_json:
@@ -206,6 +202,7 @@ def main(argv=None) -> int:
         stats["k1_calls_by_stage"] = k1_calls
         stats["device"] = (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu")
+        stats["devices"] = n_dev
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=2, default=float)
         print(f"  stats -> {args.stats_json}")
@@ -213,15 +210,18 @@ def main(argv=None) -> int:
     return 0
 
 
-def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict):
+def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict, mesh=None):
     """The stages the flags ask for (recon3d_tpu/cli.py:217-384). Returns
-    (the --stats-json record so far, the sparse points)."""
+    (the --stats-json record so far, the sparse points). With a mesh, K1's
+    launches are counted on every rank (summed, and 'by_rank')."""
     import torch
 
     from recon3d_tpu_torch.camera import CameraPose, stack_poses
     from recon3d_tpu_torch.config import ReconstructionConfig
     from recon3d_tpu_torch.io.ply import save_cameras_ply, save_ply
-    from recon3d_tpu_torch.kernels.warp import record_launches
+    from recon3d_tpu_torch.kernels import warp
+
+    record_launches = mesh.record_launches if mesh is not None else warp.record_launches
 
     cfg = ReconstructionConfig.fast() if args.fast else ReconstructionConfig()
     cfg = cfg.replace(sfm=dataclasses.replace(cfg.sfm, seed=args.seed))
@@ -261,6 +261,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
             fast_mode=args.fast,
             neural_mode=args.neural,
             config=cfg,
+            mesh=mesh,
             prescale_hints=tuple(sorted(prescales)),
             device=device,
         )
@@ -325,6 +326,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
                 images, poses, sparse_points=points, checkpointer=ckpt,
                 return_maps=want_maps,
                 host_small=iset.prescaled.get(round(float(cfg.patchmatch.scale), 6)),
+                mesh=mesh,
             )
             dp, dc = out[:2]
             if want_maps:
@@ -347,6 +349,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
             out = rec.reconstruct(
                 images, poses, sparse_points=points, return_maps=mesh_from_stereo,
                 host_small=iset.prescaled.get(round(float(cfg.plane_sweep.scale), 6)),
+                mesh=mesh,
             )
             dp, dc = out[:2]
             if mesh_from_stereo:
@@ -379,6 +382,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict)
                     min_conf=mesh_min_conf,
                     timings=tsdf_s,
                     device=device,
+                    mesh=mesh,
                 )
             t_mesh = time.perf_counter()
             mv, mf = extract_mesh(vol)

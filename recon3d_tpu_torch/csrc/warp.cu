@@ -323,6 +323,9 @@ int launch(const Args& a, unsigned int gx, unsigned int gy, int threads, int sme
   } else {
     kernel = tent_warp_shared<VEC, VARIANT == 2>;
   }
+  // this library's runtime keeps a refused call's error until it is read:
+  // clear it, so that the check after the launch reports this launch alone
+  (void)cudaGetLastError();
   if (smem > 0) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

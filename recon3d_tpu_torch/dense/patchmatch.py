@@ -35,7 +35,7 @@ from recon3d_tpu_torch.dense.plane_sweep import (
     depth_range_from_sparse,
     fused_points_compact,
 )
-from recon3d_tpu_torch.ops.image import resize, sample_planes
+from recon3d_tpu_torch.ops.image import resize_batch_invariant, sample_planes
 from recon3d_tpu_torch.ops.ncc import ncc_windowed
 from recon3d_tpu_torch.runtime.device import disable_tf32, resolve_device
 
@@ -156,7 +156,7 @@ def _smooth_field(shape, block: int = 8, dist: str = "uniform", generator=None,
         f = torch.stack([_draw(g, grid[1:], dist, device) for g in generator])
     else:
         f = _draw(generator, grid, dist, device)
-    return resize(f, (H, W))
+    return resize_batch_invariant(f, (H, W))
 
 
 class _Fields:
@@ -299,8 +299,8 @@ def patchmatch_depth_batch(
 
     if coarse_factor > 1 and min(H, W) >= 4 * coarse_factor:
         Hc, Wc = H // coarse_factor, W // coarse_factor
-        ref_c = resize(ref_grays, (Hc, Wc))
-        src_c = resize(src_grays, (Hc, Wc))
+        ref_c = resize_batch_invariant(ref_grays, (Hc, Wc))
+        src_c = resize_batch_invariant(src_grays, (Hc, Wc))
         Kc = _scale_K(K, coarse_factor)
         depth_c, _, _ = _run_level(
             ref_c, src_c, Kc, R_refs, t_refs, R_srcss, t_srcss,
@@ -308,7 +308,7 @@ def patchmatch_depth_batch(
             iters=num_iterations, it_offset=0,
             num_samples=num_samples, patch=patch, steps=(1, 4, 16),
         )
-        depth0 = resize(depth_c, (H, W))
+        depth0 = resize_batch_invariant(depth_c, (H, W))
         depth, rays, cost_fn = _run_level(
             ref_grays, src_grays, K, R_refs, t_refs, R_srcss, t_srcss,
             dmin, dmax, fields, depth0,
@@ -408,11 +408,10 @@ class PatchMatchMVS:
     `poses` a dict {idx: (R, t)} of registered cameras (numpy). Runs on
     `device` ("cuda" unless the caller asks for "cpu").
 
-    Ported: the single-device paths of recon3d_tpu/dense/patchmatch.py:
-    476-667, with and without a checkpointer, and the return_maps branch
-    (the depth and confidence maps the TSDF mesh stage fuses). The `mesh=`
-    branch over several devices is not ported yet (ROADMAP.md, section 1,
-    item 12).
+    Ported: recon3d_tpu/dense/patchmatch.py:476-667, with and without a
+    checkpointer, the return_maps branch (the depth and confidence maps the
+    TSDF mesh stage fuses) and the `mesh=` branch, where all pending views
+    shard over the mesh's 'data' axis in one distributed_patchmatch call.
     """
 
     def __init__(self, camera: Camera, config: Optional[PatchMatchConfig] = None,
@@ -431,6 +430,7 @@ class PatchMatchMVS:
         checkpointer=None,
         return_maps: bool = False,
         host_small: Optional[np.ndarray] = None,
+        mesh=None,
     ):
         """With return_maps=True, returns (points, colors, maps) where maps
         carries the per-view depth and confidence maps, on the device, and
@@ -441,7 +441,12 @@ class PatchMatchMVS:
         at a time, and the fused cloud is the one a run without it gives.
 
         host_small: optional (N, H*scale, W*scale, 3) prescaled color
-        stack indexed like `images` (ImageSet.small_color)."""
+        stack indexed like `images` (ImageSet.small_color).
+
+        mesh: a parallel.mesh.Mesh: every view not loaded from the
+        checkpointer runs in one distributed_patchmatch call sharded over
+        its 'data' axis (view v still draws from view_generator(seed, v)),
+        and the maps are saved on rank 0 after the gather."""
         cfg = self.config
         dev = self.device
         t0 = time.time()
@@ -491,7 +496,10 @@ class PatchMatchMVS:
         ranges = np.asarray(ranges, np.float32)
         t_prep = time.time() - t0
 
-        if checkpointer is None:
+        if mesh is not None:
+            depth_all, conf_all = self._mesh_maps(
+                mesh, checkpointer, ids, grays, sources, Rs, ts, ranges, K, row)
+        elif checkpointer is None:
             # maps stay on the device through fusion
             batch_d: List[torch.Tensor] = []
             batch_c: List[torch.Tensor] = []
@@ -516,6 +524,47 @@ class PatchMatchMVS:
                                "Rs": Rs, "ts": ts, "ids": list(ids)}
         return pts, cols
 
+    def _mesh_maps(self, mesh, checkpointer, ids, grays, sources, Rs, ts, ranges, K, row):
+        """(depth, confidence) of every view on the device: the maps the
+        checkpointer holds are loaded, all others computed in one call
+        sharded over the mesh (recon3d_tpu/dense/patchmatch.py:617-642) and
+        saved by this process, rank 0, after the gather (:657-659)."""
+        from recon3d_tpu_torch.dense.distributed import distributed_patchmatch
+
+        cfg = self.config
+        V = len(ids)
+        maps: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        if checkpointer is not None:
+            for v, i in enumerate(ids):
+                dc = checkpointer.load_depth(i)
+                if dc is not None:
+                    maps[v] = dc
+            if maps:
+                print(f"[patchmatch] resumed {len(maps)}/{V} depth maps from checkpoint")
+        todo = [v for v in range(V) if v not in maps]
+        if todo:
+            src = [[row[j] for j in sources[ids[v]]] for v in todo]
+            out = distributed_patchmatch(
+                grays[todo], np.stack([grays[s] for s in src]), K,
+                Rs[todo], ts[todo], np.stack([Rs[s] for s in src]),
+                np.stack([ts[s] for s in src]), ranges[todo],
+                seed=cfg.seed, mesh=mesh, positions=todo,
+                num_iterations=cfg.num_iterations,
+                num_samples=cfg.num_refine_samples,
+                patch=cfg.patch_size,
+                ncc_threshold=cfg.ncc_confidence_threshold,
+                coarse_factor=cfg.coarse_factor,
+                fine_iterations=cfg.fine_iterations,
+            )
+            for k, v in enumerate(todo):
+                maps[v] = (out.depth[k], out.confidence[k])
+                if checkpointer is not None:
+                    checkpointer.save_depth(ids[v], out.depth[k], out.confidence[k])
+        dev = self.device
+        depth_all = torch.from_numpy(np.stack([maps[v][0] for v in range(V)])).to(dev)
+        conf_all = torch.from_numpy(np.stack([maps[v][1] for v in range(V)])).to(dev)
+        return depth_all, conf_all
+
     def _checkpointed_maps(self, checkpointer, ids, grays, sources, Rs, ts, ranges,
                            K, row, views_per_batch):
         """(depth, confidence) of every view, stacked on the device: the
@@ -525,9 +574,10 @@ class PatchMatchMVS:
 
         A view runs in the batch a run without checkpoints gives it, with
         the same companions (a companion whose map was loaded is computed
-        again and its result dropped): on the card a view run in a batch of
-        another size does not reproduce its map bit for bit (PatchMatch is
-        chaotic at 1e-3), on the CPU it does."""
+        again and its result dropped): PatchMatch is chaotic at 1e-3, and
+        this holds a resumed map to the fresh run's bit for bit even should
+        an operation round by its batch's size on the card (resize once
+        did)."""
         V = len(ids)
         loaded: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         for v, i in enumerate(ids):

@@ -19,8 +19,8 @@ What changes against the JAX version:
     candidates;
   - the JAX module's windowed NCC (`_ncc`) is ops/ncc.ncc_windowed, the
     same masked moments;
-  - the view-sharded path over several devices is not ported (ROADMAP.md,
-    section 1, item 12).
+  - over a mesh (parallel/mesh.py) the reference views shard over 'data'
+    (dense/distributed.py::distributed_plane_sweep) and rank 0 fuses.
 
 `create_combined_dense_cloud` is the JAX package's library wrapper around
 the sweep; the CLI's --combined does not call it (it runs the sweep and
@@ -40,7 +40,7 @@ import torch
 
 from recon3d_tpu_torch.camera import Camera
 from recon3d_tpu_torch.config import PlaneSweepConfig
-from recon3d_tpu_torch.ops.image import resize, sample_planes
+from recon3d_tpu_torch.ops.image import resize_batch_invariant, sample_planes
 from recon3d_tpu_torch.ops.ncc import ncc_windowed
 from recon3d_tpu_torch.runtime.device import resolve_device
 
@@ -208,8 +208,8 @@ def _sweep_hier(
 
     R, J, H, W = src_grays.shape
     H2, W2 = H // 2, W // 2
-    ref2 = resize(ref_grays, (H2, W2))
-    src2 = resize(src_grays, (H2, W2))
+    ref2 = resize_batch_invariant(ref_grays, (H2, W2))
+    src2 = resize_batch_invariant(src_grays, (H2, W2))
     # intrinsics at the half scale under resize's half-pixel convention
     S = torch.tensor([[0.5, 0.0, -0.25], [0.0, 0.5, -0.25], [0.0, 0.0, 1.0]],
                      dtype=K.dtype, device=K.device)
@@ -219,7 +219,7 @@ def _sweep_hier(
     inv_lo = 1.0 / depth_range[1]
     inv_hi = 1.0 / depth_range[0]
     step = (inv_hi - inv_lo) / (num_depths - 1)
-    inv_full = torch.clamp(resize(1.0 / d2, (H, W)), inv_lo, inv_hi)
+    inv_full = torch.clamp(resize_batch_invariant(1.0 / d2, (H, W)), inv_lo, inv_hi)
     offsets = torch.tensor([0.0, -1.0, -0.5, 0.5, 1.0], dtype=ref_grays.dtype,
                            device=ref_grays.device) * step
     cands = torch.clamp(inv_full[:, None] + offsets[:, None, None], inv_lo, inv_hi)  # (R,C,H,W)
@@ -332,12 +332,15 @@ class PlaneSweepReconstructor:
         max_ref_views: Optional[int] = None,
         return_maps: bool = False,
         host_small: Optional[np.ndarray] = None,
+        mesh=None,
     ):
         """With return_maps=True, returns (points, colors, maps): per-ref
         depth and consistency-count maps (on the device) and their
         geometry, for the TSDF mesh stage (the contract of
         PatchMatchMVS.reconstruct). host_small: optional load-time
-        prescaled (N, H*scale, W*scale, 3) colour stack."""
+        prescaled (N, H*scale, W*scale, 3) colour stack. mesh: a
+        parallel.mesh.Mesh whose 'data' axis shards the reference views
+        (recon3d_tpu/dense/plane_sweep.py:444-500); the fusion runs here."""
         cfg = self.config
         dev = self.device
         t0 = time.time()
@@ -394,11 +397,24 @@ class PlaneSweepReconstructor:
         t_srcs = up(np.stack([np.stack([poses[j][1] for j in neighbors[i][:J]])
                               for i in ref_ids]))
         Kd = up(K)
-        depth_b, cnt_b, _ = sweep_depth_maps(
-            ref_g, src_g, Kd, R_refs, t_refs, R_srcs, t_srcs, up(dr),
-            num_depths=cfg.num_depths, patch=cfg.patch_size,
-            ncc_threshold=cfg.ncc_threshold,
-        )
+        if mesh is not None:
+            from recon3d_tpu_torch.dense.distributed import distributed_plane_sweep
+
+            src_np = np.asarray(grays)[np.asarray(src_rows, np.int64)]
+            depth_np, cnt_np, _ = distributed_plane_sweep(
+                grays[[id_row[i] for i in ref_ids]], src_np, K,
+                R_refs.cpu().numpy(), t_refs.cpu().numpy(), R_srcs.cpu().numpy(),
+                t_srcs.cpu().numpy(), np.asarray(dr, np.float32), mesh=mesh,
+                num_depths=cfg.num_depths, patch=cfg.patch_size,
+                ncc_threshold=cfg.ncc_threshold,
+            )
+            depth_b, cnt_b = torch.from_numpy(depth_np).to(dev), torch.from_numpy(cnt_np).to(dev)
+        else:
+            depth_b, cnt_b, _ = sweep_depth_maps(
+                ref_g, src_g, Kd, R_refs, t_refs, R_srcs, t_srcs, up(dr),
+                num_depths=cfg.num_depths, patch=cfg.patch_size,
+                ncc_threshold=cfg.ncc_threshold,
+            )
         # Fusion: back-project every consistent pixel of every reference
         # view in one batched call, compact on the device, download once.
         min_views_r = up([min(cfg.min_views, len(neighbors[i])) for i in ref_ids], np.int64)

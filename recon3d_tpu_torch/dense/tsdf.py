@@ -15,8 +15,9 @@ What changes against the JAX version:
     coordinates, so each view costs one K1 launch (ops/image.sample_planes);
   - coordinates are torch.round of u and v, which rounds half to even as
     jnp.round does;
-  - the view-sharded program over several devices is not ported
-    (ROADMAP.md, section 1, item 12).
+  - over a mesh (parallel/mesh.py) the views shard over 'data': each rank
+    adds its views into the whole grid, then one all_reduce pair sums the
+    numerators and weights (the JAX shard_map's psum pair, tsdf.py:111-142).
 """
 
 from __future__ import annotations
@@ -97,6 +98,38 @@ def _accumulate_views(depths, confs, K, Rs, ts, origin, voxel, trunc, n):
     return num, den
 
 
+def _integrate_shard(mesh, p: dict):
+    """One rank's views added into the whole grid, then the sums over the
+    data group: (tsdf, weight) on rank 0, None elsewhere. Ranks of a model
+    index > 0 sit out (the views are replicated over 'model')."""
+    if mesh.model_index:
+        return None
+    dev = mesh.device
+    num, den = _accumulate_views(
+        _as_tensor(p["depths"], dev), _as_tensor(p["confs"], dev), _as_tensor(p["K"], dev),
+        _as_tensor(p["Rs"], dev), _as_tensor(p["ts"], dev), _as_tensor(p["origin"], dev),
+        p["voxel"], p["trunc"], p["n"])
+    mesh.all_reduce_(num)
+    mesh.all_reduce_(den)
+    if mesh.rank:
+        return None
+    return _finalize(num, den, p["n"])
+
+
+def _integrate_sharded(mesh, depths, confs, K, Rs, ts, origin, voxel, trunc, n):
+    """The views sharded over the mesh's 'data' axis (parallel/mesh.py
+    data_rows): rank 0 keeps its views on its device, the other ranks get
+    theirs as host arrays."""
+    from recon3d_tpu_torch.parallel.mesh import data_rows
+
+    common = dict(K=K, origin=origin, voxel=voxel, trunc=trunc, n=n)
+    payloads = []
+    for r, (lo, hi) in enumerate(data_rows(mesh, depths.shape[0])):
+        payloads.append(dict(depths=depths[lo:hi], confs=confs[lo:hi], Rs=Rs[lo:hi],
+                             ts=ts[lo:hi], **common))
+    return mesh.call(_integrate_shard, payloads)[0]
+
+
 def _finalize(num, den, n):
     tsdf = torch.where(den > 0, num / torch.clamp_min(den, 1e-12), 1.0)
     return tsdf.reshape(n, n, n), den.reshape(n, n, n)
@@ -121,6 +154,7 @@ def fuse_tsdf(
     sparse_points: Optional[np.ndarray] = None,
     timings: Optional[dict] = None,
     device="cuda",
+    mesh=None,
 ) -> TSDFVolume:
     """Fuse per-view depth maps into a TSDF volume on `device`.
 
@@ -130,11 +164,13 @@ def fuse_tsdf(
     bounds: (lo, hi) world AABB; derived from sparse_points (or from the
             depth maps' backprojection) when omitted.
     resolution: voxels per axis. trunc_voxels: truncation in voxel units.
+    mesh: a parallel.mesh.Mesh whose 'data' axis shards the views; rank 0
+    runs on the mesh's device.
     The volume comes back to the host (numpy) as the JAX function's does.
     """
     tm = timings if timings is not None else {}
     _t = time.time()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     depths = _as_tensor(depths, dev)
     V, H, W = depths.shape
     if confs is None:
@@ -159,12 +195,13 @@ def fuse_tsdf(
 
     tm["host_prep_s"] = time.time() - _t
     _t = time.time()
-    num, den = _accumulate_views(
-        depths, confs, _as_tensor(K, dev), _as_tensor(Rs, dev), _as_tensor(ts, dev),
-        _as_tensor(lo.astype(np.float32), dev),
-        float(np.float32(voxel)), float(np.float32(trunc)), int(resolution),
-    )
-    tsdf, weight = _finalize(num, den, int(resolution))
+    args = (depths, confs, _as_tensor(K, dev), _as_tensor(Rs, dev), _as_tensor(ts, dev),
+            _as_tensor(lo.astype(np.float32), dev),
+            float(np.float32(voxel)), float(np.float32(trunc)), int(resolution))
+    if mesh is not None:
+        tsdf, weight = _integrate_sharded(mesh, *args)
+    else:
+        tsdf, weight = _finalize(*_accumulate_views(*args), int(resolution))
     tm["upload_dispatch_s"] = time.time() - _t
     _t = time.time()
     vol = TSDFVolume(

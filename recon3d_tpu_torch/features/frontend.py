@@ -10,8 +10,11 @@ match results) and the host-facing API. The view axis and the pair axis
 are tensor dimensions throughout: no Python loop runs over images,
 keypoints, pairs or hypotheses.
 
-Sharding pair chunks over several devices (the `mesh=` branch of the JAX
-function) is not ported yet (ROADMAP.md, section 1, item 12).
+With a mesh (parallel/mesh.py), match_pairs_batched shards the pair rows
+of each chunk over its 'data' axis, the features replicated on every
+rank. Each shard returns what one device returns for its rows alone; on
+the CPU that is the whole chunk's result bit for bit, on a GPU a pair's
+F-RANSAC may round otherwise in a smaller batch (ROADMAP.md, section 3).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from recon3d_tpu_torch.config import MatchConfig, SiftConfig
 from recon3d_tpu_torch.ops.clahe import clahe
 from recon3d_tpu_torch.ops.estimation import estimate_fundamental_ransac
+from recon3d_tpu_torch.ops.ransac import indices_from_uniform
 from recon3d_tpu_torch.ops.match import (
     MatchResult,
     gather_matched_points,
@@ -246,10 +250,15 @@ def _match_verify_batch(
     ratio: float = 0.75,
     cross_check: bool = True,
     num_hypotheses: int = 1024,
+    rows: Optional[Tuple[int, int, int]] = None,
 ):
     """Match + F-RANSAC for a whole batch of image pairs at once: the pair
     axis is the leading tensor dimension of every step. Uses the streaming
     matcher, so the (K, K) distance matrices never materialize whole.
+
+    rows: (lo, hi, n) when the batch is rows lo:hi of a chunk of n pairs
+    (one shard of it): the generator draws the whole chunk's uniforms and
+    the batch samples from its rows of them.
 
     Returns per-pair (idx2 (P, K), inlier_mask (P, K), F (P, 3, 3),
     num_inliers (P,), num_raw (P,))."""
@@ -258,9 +267,15 @@ def _match_verify_batch(
         ratio=ratio, cross_check=cross_check,
     )
     x1, x2 = gather_matched_points(xy[pi], xy[pj], m)
+    draws = None
+    if rows is not None:
+        lo, hi, n = rows
+        g = torch.rand((n, num_hypotheses, desc.shape[1]), generator=generator,
+                       device=desc.device)[lo:hi]
+        draws = indices_from_uniform(g, m.mask.to(torch.float32), 8)
     res = estimate_fundamental_ransac(
         generator, x1, x2, m.mask.to(torch.float32),
-        threshold_px=threshold_px, num_hypotheses=num_hypotheses,
+        threshold_px=threshold_px, num_hypotheses=num_hypotheses, sample_indices=draws,
     )
     return m.idx2, m.mask & res.inliers, res.F, res.num_inliers, m.num_matches
 
@@ -280,10 +295,20 @@ def match_pairs_batched(
     config: Optional[MatchConfig] = None,
     chunk: int = 64,
     timings: Optional[Dict[str, float]] = None,
+    mesh=None,
 ):
     """Host-facing batched pair matching: stacks the per-image features once
     and runs _match_verify_batch over chunks of pairs, drawing each chunk's
     RANSAC samples from `generator` in chunk order.
+
+    mesh: a parallel.mesh.Mesh. The chunk is rounded to a multiple of its
+    'data' size (as the JAX function does) and each chunk's pair rows shard
+    over 'data'; the compacted features go to every rank. Every rank draws
+    each whole chunk's uniforms from a copy of `generator`'s state and
+    samples from its rows of them, so each shard's result is one device's
+    for those rows (bit for bit; on a GPU the whole chunk in one batch may
+    round otherwise, module docstring), and `generator` ends where one
+    device leaves it.
 
     Features are first compacted to the smallest power-of-2 capacity that
     holds every image's valid keypoints: the extraction capacity is a
@@ -315,6 +340,14 @@ def match_pairs_batched(
     valid = features.valid[row, od].to(torch.float32)
     xy = features.xy[row, od]
     tm["compact_s"] = time.time() - _t
+    if mesh is not None:
+        _t = time.time()
+        n_data = mesh.shape["data"]
+        chunk = max(chunk, n_data) // n_data * n_data
+        idx2, inl, F, n_inl, n_raw = _match_sharded(
+            mesh, desc, valid, xy, pairs, generator, cfg, chunk)
+        tm["dispatch_s"] = time.time() - _t
+        return _translate(pairs, order, C, idx2, inl, F, n_inl, n_raw, tm)
     # Launch every chunk, keep the outputs on the device, then pull each
     # field once: one sync for the whole stage.
     _t = time.time()
@@ -335,6 +368,12 @@ def match_pairs_batched(
         torch.cat(field, dim=0).cpu().numpy() for field in zip(*chunk_out)
     )
     tm["result_pull_s"] = time.time() - _t
+    return _translate(pairs, order, C, idx2, inl, F, n_inl, n_raw, tm)
+
+
+def _translate(pairs, order, C, idx2, inl, F, n_inl, n_raw, tm):
+    """The per-pair result tuples, compacted positions translated back to
+    the original keypoint ids."""
     _t = time.time()
     out = []
     for r, (i, j) in enumerate(pairs):
@@ -345,3 +384,58 @@ def match_pairs_batched(
         out.append((i, j, idx1_orig, idx2_orig, F[r], int(n_inl[r]), int(n_raw[r])))
     tm["translate_s"] = time.time() - _t
     return out
+
+
+def _match_shard(mesh, p: dict):
+    """One rank's rows of every chunk (see match_pairs_batched's mesh)."""
+    from recon3d_tpu_torch.parallel.mesh import shard_rows
+
+    dev = mesh.device
+    desc, valid, xy = (torch.as_tensor(p[k]).to(dev) for k in ("desc", "valid", "xy"))
+    gen = torch.Generator(device=dev)
+    gen.set_state(p["generator_state"])
+    pairs, chunk, cfg = p["pairs"], p["chunk"], p["config"]
+    d, n_data = mesh.data_index, mesh.shape["data"]
+    out = []
+    for c0 in range(0, len(pairs), chunk):
+        batch = np.asarray(pairs[c0: c0 + chunk], np.int64).reshape(-1, 2)
+        lo, hi = shard_rows(len(batch), n_data)[d]
+        if hi == lo:   # no rows here: still draw the chunk, as every rank does
+            torch.rand((len(batch), cfg.ransac_hypotheses, desc.shape[1]), generator=gen,
+                       device=dev)
+            continue
+        pij = torch.from_numpy(batch[lo:hi]).to(dev)
+        out.append(_match_verify_batch(
+            desc, valid, xy, pij[:, 0], pij[:, 1], gen, float(cfg.ransac_threshold_px),
+            ratio=cfg.ratio, cross_check=cfg.cross_check,
+            num_hypotheses=cfg.ransac_hypotheses, rows=(lo, hi, len(batch))))
+    if mesh.model_index:
+        return None
+    if not out:
+        return None if mesh.rank else ([], gen.get_state())
+    res = [torch.cat(field, dim=0) for field in zip(*out)]
+    if mesh.rank == 0:
+        return res, gen.get_state()
+    return [r.cpu().numpy() for r in res]
+
+
+def _match_sharded(mesh, desc, valid, xy, pairs, generator, cfg, chunk):
+    """match_pairs_batched's chunks with their pair rows sharded over the
+    mesh's 'data' axis; returns the fields (idx2, inliers, F, n_inliers,
+    n_raw) of all pairs on the host, in pair order, and leaves
+    `generator` where the one-device loop leaves it."""
+    if generator is None:
+        raise ValueError("match_pairs_batched(mesh=...) needs a torch.Generator: every rank "
+                         "draws from a copy of its state")
+    common = dict(pairs=[tuple(map(int, q)) for q in pairs], chunk=chunk, config=cfg,
+                  generator_state=generator.get_state())
+    rank0 = dict(desc=desc, valid=valid, xy=xy, **common)
+    host = dict(desc=desc.cpu(), valid=valid.cpu(), xy=xy.cpu(), **common)
+    res = mesh.call(_match_shard, [rank0] + [host] * (mesh.world - 1))
+    (own, state), rest = res[0], res[1:]
+    generator.set_state(state)
+    from recon3d_tpu_torch.parallel.mesh import chunk_rows_in_order
+
+    fields = [[o.cpu().numpy() for o in own]] + rest
+    # the ranks of model index 0, in data order, each with its rows of every chunk
+    return tuple(chunk_rows_in_order(fields[::mesh.shape["model"]], len(pairs), chunk))

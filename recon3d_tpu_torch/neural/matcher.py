@@ -16,8 +16,8 @@ Without them SuperPoint reads the JAX package's bundled checkpoint in
 place (recon3d_tpu/neural/pretrained/, resolved from the repository root:
 a data file, not an import), and matcher="auto" resolves to mutual-NN
 descriptor matching; matcher="lightglue" loads the bundled LightGlue
-checkpoint. Sharding pair chunks over several devices (`mesh=`) is not
-ported yet (item 12).
+checkpoint. With a mesh (parallel/mesh.py), match_pairs_batched shards
+each chunk's pair rows over its 'data' axis, as the SIFT front end does.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from recon3d_tpu_torch.neural.superpoint import (
 from recon3d_tpu_torch.neural.weights import flax_init_
 from recon3d_tpu_torch.ops.estimation import estimate_fundamental_ransac
 from recon3d_tpu_torch.ops.match import MatchResult, match_descriptors
+from recon3d_tpu_torch.ops.ransac import indices_from_uniform
 from recon3d_tpu_torch.runtime.device import resolve_device
 
 # The JAX package's bundled checkpoints, read in place.
@@ -205,11 +206,19 @@ class NeuralMatcher:
 
     # -- batched pair matching -------------------------------------------------
 
-    def _verify(self, m: MatchResult, xy1, xy2, generator, draws=None):
+    def _verify(self, m: MatchResult, xy1, xy2, generator, draws=None, rows=None):
         """F-RANSAC of the matches of a pair, or of a batch of pairs (leading
-        dimensions of m and xy): (idx2, inliers, F, num_inliers, num_raw)."""
+        dimensions of m and xy): (idx2, inliers, F, num_inliers, num_raw).
+        rows: (lo, hi, n) when the batch is rows lo:hi of a chunk of n pairs:
+        the generator draws the whole chunk's uniforms, the batch takes its
+        rows (features/frontend.py::_match_verify_batch)."""
         mc = self.match_config
         mask = m.mask
+        if rows is not None and draws is None:
+            lo, hi, n = rows
+            g = torch.rand((n, mc.ransac_hypotheses, mask.shape[-1]), generator=generator,
+                           device=mask.device)[lo:hi]
+            draws = indices_from_uniform(g, mask.to(torch.float32), 8)
         x1 = torch.where(mask[..., None], xy1, 0.0)
         idx = m.idx2.clamp_min(0)[..., None].expand(m.idx2.shape + (2,))
         x2 = torch.where(mask[..., None], torch.gather(xy2, -2, idx), 0.0)
@@ -234,44 +243,130 @@ class NeuralMatcher:
         the mutual-NN matches of the same pairs, and per pair the verdict
         with more inliers wins. sample_indices: pre-drawn samples instead,
         one dict per chunk, {"lightglue": (B, H, 8), "nn": (B, H, 8)} int64
-        (the tests pass the JAX draws)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding pair chunks over several devices is not ported yet "
-                "(ROADMAP.md, section 1, item 12)")
+        (the tests pass the JAX draws).
+
+        mesh: a parallel.mesh.Mesh. The chunk is rounded to a multiple of its
+        'data' size, each chunk's pair rows shard over 'data' (features and
+        LightGlue's weights go to every rank). Every rank draws each whole
+        chunk from a copy of `generator`'s state and takes its rows
+        (pre-drawn sample_indices are sliced by rows), so a shard's result
+        is one device's for those rows; on the CPU it is the whole chunk's
+        bit for bit, on a GPU a smaller batch may round otherwise
+        (ROADMAP.md, section 3)."""
         self._ensure_params()
-        hw = hw or (1024, 1024)
+        hw = tuple(hw or (1024, 1024))
         dev = self.device
         desc = torch.stack([f.desc for f in features]).to(dev)
         xy = torch.stack([f.xy for f in features]).to(dev)
         valid = torch.stack([f.valid for f in features]).to(dev)
-        kind = self.matcher_kind
-        fallback = kind == "lightglue" and self.config.lightglue_nn_fallback
-        chunk_out = []
-        for c, c0 in enumerate(range(0, len(pairs), chunk)):
-            pij = torch.as_tensor(np.asarray(pairs[c0: c0 + chunk], np.int64).reshape(-1, 2),
-                                  device=dev)
-            pi, pj = pij[:, 0], pij[:, 1]
-            draws = sample_indices[c] if sample_indices is not None else {}
-            m_nn = None
-            if kind == "nn" or fallback:
-                m_nn = self._nn(desc[pi], desc[pj], valid[pi], valid[pj])
-            if kind == "nn":
-                chunk_out.append(self._verify(m_nn, xy[pi], xy[pj], generator, draws.get("nn")))
-                continue
-            m = self._lightglue(desc[pi], desc[pj], xy[pi], xy[pj], valid[pi], valid[pj], hw)
-            out = self._verify(m, xy[pi], xy[pj], generator, draws.get("lightglue"))
-            if fallback:
-                alt = self._verify(m_nn, xy[pi], xy[pj], generator, draws.get("nn"))
-                take_nn = alt[3] > out[3]
-                out = tuple(
-                    torch.where(take_nn.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-                    for a, b in zip(alt, out))
-            chunk_out.append(out)
-        idx2, inl, F, n_inl, n_raw = (
-            torch.cat(field, dim=0).cpu().numpy() for field in zip(*chunk_out))
+        if mesh is not None:
+            n_data = mesh.shape["data"]
+            chunk = max(chunk, n_data) // n_data * n_data
+            idx2, inl, F, n_inl, n_raw = self._match_sharded(
+                mesh, desc, xy, valid, pairs, generator, chunk, hw, sample_indices)
+        else:
+            idx2, inl, F, n_inl, n_raw = (
+                torch.cat(field, dim=0).cpu().numpy() for field in zip(*self._match_chunks(
+                    desc, xy, valid, pairs, generator, chunk, hw, sample_indices)))
         res = []
         for r, (i, j) in enumerate(pairs):
             sel = np.flatnonzero(inl[r])
             res.append((i, j, sel, idx2[r][sel], F[r], int(n_inl[r]), int(n_raw[r])))
         return res
+
+    def _match_chunks(self, desc, xy, valid, pairs, generator, chunk, hw, sample_indices,
+                      shard=None):
+        """The chunks' (idx2, inliers, F, num_inliers, num_raw) on the device.
+        shard: (d, n_data) to run only the rows of data index d of each
+        chunk (an empty chunk part still draws, as every rank draws)."""
+        from recon3d_tpu_torch.parallel.mesh import shard_rows
+
+        dev = desc.device
+        kind = self.matcher_kind
+        fallback = kind == "lightglue" and self.config.lightglue_nn_fallback
+        chunk_out = []
+        for c, c0 in enumerate(range(0, len(pairs), chunk)):
+            batch = np.asarray(pairs[c0: c0 + chunk], np.int64).reshape(-1, 2)
+            rows, lo, hi = None, 0, len(batch)
+            if shard is not None:
+                lo, hi = shard_rows(len(batch), shard[1])[shard[0]]
+                rows = (lo, hi, len(batch))
+            draws = {k: v[lo:hi] for k, v in sample_indices[c].items()} \
+                if sample_indices is not None else {}
+            if hi == lo:
+                if sample_indices is None:
+                    for _ in range(1 + (kind == "lightglue" and fallback)):
+                        torch.rand((len(batch), self.match_config.ransac_hypotheses,
+                                    desc.shape[1]), generator=generator, device=dev)
+                continue
+            pij = torch.as_tensor(batch[lo:hi], device=dev)
+            pi, pj = pij[:, 0], pij[:, 1]
+            m_nn = None
+            if kind == "nn" or fallback:
+                m_nn = self._nn(desc[pi], desc[pj], valid[pi], valid[pj])
+            if kind == "nn":
+                chunk_out.append(self._verify(m_nn, xy[pi], xy[pj], generator, draws.get("nn"),
+                                              rows))
+                continue
+            m = self._lightglue(desc[pi], desc[pj], xy[pi], xy[pj], valid[pi], valid[pj], hw)
+            out = self._verify(m, xy[pi], xy[pj], generator, draws.get("lightglue"), rows)
+            if fallback:
+                alt = self._verify(m_nn, xy[pi], xy[pj], generator, draws.get("nn"), rows)
+                take_nn = alt[3] > out[3]
+                out = tuple(
+                    torch.where(take_nn.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+                    for a, b in zip(alt, out))
+            chunk_out.append(out)
+        return chunk_out
+
+    def _match_sharded(self, mesh, desc, xy, valid, pairs, generator, chunk, hw,
+                       sample_indices):
+        """_match_chunks with each chunk's rows sharded over the mesh's
+        'data' axis; the fields of all pairs on the host, in pair order."""
+        from recon3d_tpu_torch.parallel.mesh import chunk_rows_in_order
+
+        if generator is None and sample_indices is None:
+            raise ValueError("match_pairs_batched(mesh=...) needs a torch.Generator or "
+                             "sample_indices")
+        common = dict(config=self.config, match_config=self.match_config,
+                      kind=self.matcher_kind, pairs=[tuple(map(int, q)) for q in pairs],
+                      chunk=chunk, hw=hw, sample_indices=sample_indices,
+                      generator_state=None if generator is None else generator.get_state(),
+                      lightglue=None)
+        rank0 = dict(common, matcher=self, desc=desc, xy=xy, valid=valid)
+        host = dict(common, desc=desc.cpu(), xy=xy.cpu(), valid=valid.cpu())
+        if self.matcher_kind == "lightglue":
+            host["lightglue"] = {k: v.cpu() for k, v in self.lg.state_dict().items()}
+        res = mesh.call(_neural_match_shard, [rank0] + [host] * (mesh.world - 1))
+        own, state = res[0]
+        if generator is not None:
+            generator.set_state(state)
+        # the ranks of model index 0, in data order, each with its rows of every chunk
+        return tuple(chunk_rows_in_order(([own] + res[1:])[::mesh.shape["model"]],
+                                         len(pairs), chunk))
+
+
+def _neural_match_shard(mesh, p: dict):
+    """One rank's rows of every chunk of NeuralMatcher.match_pairs_batched.
+    Rank 0 runs its own matcher; a worker builds one from the config with
+    rank 0's LightGlue weights."""
+    dev = mesh.device
+    nm = p.get("matcher")
+    if nm is None:
+        nm = NeuralMatcher(p["config"], p["match_config"], device=dev)
+        nm._ensure_params()
+        nm.matcher_kind = p["kind"]
+        if p["lightglue"] is not None:
+            nm.lg.load_state_dict(p["lightglue"])
+    gen = None
+    if p["generator_state"] is not None:
+        gen = torch.Generator(device=dev)
+        gen.set_state(p["generator_state"])
+    desc, xy, valid = (torch.as_tensor(p[k]).to(dev) for k in ("desc", "xy", "valid"))
+    with torch.no_grad():
+        out = nm._match_chunks(desc, xy, valid, p["pairs"], gen, p["chunk"], p["hw"],
+                               p["sample_indices"], shard=(mesh.data_index, mesh.shape["data"]))
+    fields = [torch.cat(f, dim=0).cpu().numpy() for f in zip(*out)] if out else None
+    if mesh.rank == 0:
+        return fields, (None if gen is None else gen.get_state())
+    return None if mesh.model_index else fields

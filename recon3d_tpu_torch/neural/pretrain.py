@@ -14,6 +14,10 @@ Run:
     python -m recon3d_tpu_torch.neural.pretrain --steps 3000 [--device cpu]
     python -m recon3d_tpu_torch.neural.pretrain --model lightglue --steps 4096
 
+--devices N trains data-parallel over N devices (parallel/mesh.py; 0 takes
+every visible GPU, capped as the CLI caps it): each batch splits over the
+ranks and the gradients are summed before every step.
+
 The default --out is recon3d_tpu_torch/neural/pretrained/{superpoint,
 lightglue}_synthetic.npz (git-ignored). The JAX package's bundled files
 under recon3d_tpu/neural/pretrained/ are never written: the matcher keeps
@@ -112,7 +116,8 @@ def train(steps: int = 3000, batch: int = 32, hw=(128, 128), lr: float = 1e-3, s
           out: Optional[str] = None, desc_weight: float = 1.0, batches_per_round: int = 12,
           epochs_per_round: int = 16, adapt_steps: int = 0, texture_frac: float = 0.5,
           scene_frac: float = 0.0, init_weights: Optional[str] = None, device="cuda",
-          init_params: Optional[Dict[str, np.ndarray]] = None, stats: Optional[dict] = None):
+          init_params: Optional[Dict[str, np.ndarray]] = None, stats: Optional[dict] = None,
+          mesh=None):
     """SuperPoint from synthetic shapes, round by round: each round renders
     `batches_per_round` compact batches on the host (rng seeded with
     `seed`), uploads them once and runs `batches_per_round *
@@ -123,7 +128,9 @@ def train(steps: int = 3000, batch: int = 32, hw=(128, 128), lr: float = 1e-3, s
     warmup and cosine decay to 5% of lr. init_weights (an .npz or .pth)
     warm-starts; init_params replaces the initial draw (see _init_module).
     `stats`, if given, receives each round's host and device seconds and
-    all the losses. Returns the TrainState."""
+    all the losses. mesh: a parallel.mesh.Mesh whose 'data' axis splits
+    each batch (recon3d_tpu/neural/pretrain.py:115-153). Returns the
+    TrainState."""
     from recon3d_tpu_torch.neural.superpoint import SuperPointNet, scores_from_logits
     from recon3d_tpu_torch.neural.train import (
         Adam, TrainState, make_epoch_train_fn, warmup_cosine_decay_schedule)
@@ -142,7 +149,8 @@ def train(steps: int = 3000, batch: int = 32, hw=(128, 128), lr: float = 1e-3, s
     tx = Adam(sched)
     state = TrainState(model, tx.init(model.parameters()), 0)
     steps_per_round = batches_per_round * epochs_per_round
-    run = make_epoch_train_fn(model, tx, epochs=epochs_per_round, desc_weight=desc_weight)
+    run = make_epoch_train_fn(model, tx, mesh=mesh, epochs=epochs_per_round,
+                              desc_weight=desc_weight)
     stats = {} if stats is None else stats
     stats.setdefault("rounds", [])
 
@@ -284,7 +292,7 @@ def train_lightglue(steps: int = 4096, batch: int = 16, hw=(128, 128), max_keypo
                     texture_frac: float = 0.0, view_pair_frac: float = 0.0,
                     superpoint_weights: Optional[str] = None, device="cuda",
                     init_params: Optional[Dict[str, np.ndarray]] = None,
-                    stats: Optional[dict] = None):
+                    stats: Optional[dict] = None, mesh=None):
     """LightGlue on synthetic pairs with features of the frozen SuperPoint
     (the bundled checkpoint unless superpoint_weights names another,
     through NeuralMatcher's loader, at the lower training threshold).
@@ -299,7 +307,8 @@ def train_lightglue(steps: int = 4096, batch: int = 16, hw=(128, 128), max_keypo
     cosine decay to 10% of lr. init_params replaces the initial draw (flat
     Flax parameters; jax.random's draws cannot be reproduced in torch).
     `stats`, if given, receives each round's seconds, ground-truth matches
-    and losses. Returns the TrainState."""
+    and losses. mesh: as in `train` (the features are extracted on rank
+    0; the steps split each batch's pairs). Returns the TrainState."""
     from recon3d_tpu_torch.config import NeuralConfig
     from recon3d_tpu_torch.neural.lightglue import LightGlueNet, normalize_keypoints
     from recon3d_tpu_torch.neural.matcher import NeuralMatcher
@@ -323,7 +332,7 @@ def train_lightglue(steps: int = 4096, batch: int = 16, hw=(128, 128), max_keypo
         end_value=lr * 0.1)
     tx = Adam(sched, clip_norm=1.0)
     state = TrainState(lg, tx.init(lg.parameters()), 0)
-    run = make_lightglue_train_fn(lg, tx, epochs=epochs_per_round)
+    run = make_lightglue_train_fn(lg, tx, mesh=mesh, epochs=epochs_per_round)
     stats = {} if stats is None else stats
     stats.setdefault("rounds", [])
 
@@ -431,13 +440,16 @@ def build_parser() -> argparse.ArgumentParser:
                    "pretrained/; --model lightglue renames the default to "
                    "lightglue_synthetic.npz)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--devices", type=int, default=1,
+                   help="devices to train on, data-parallel (0 = every visible GPU; "
+                   "capped at those visible; on cpu, that many CPU ranks)")
     p.add_argument("--stats-json", default=None,
                    help="write each round's host and device seconds, the losses, K1's "
                    "launches and the peak of device memory here")
     return p
 
 
-def run(a: argparse.Namespace, stats: Optional[dict] = None):
+def run(a: argparse.Namespace, stats: Optional[dict] = None, mesh=None):
     """Train as the parsed flags of build_parser ask, with the JAX CLI's
     quirks: --model lightglue caps the batch at 16, takes lr 2e-4 for the
     default 1e-3 and writes lightglue_synthetic.npz where the default
@@ -451,13 +463,13 @@ def run(a: argparse.Namespace, stats: Optional[dict] = None):
             lr=a.lr if a.lr != 1e-3 else 2e-4, seed=a.seed, out=out,
             batches_per_round=a.batches_per_round, epochs_per_round=a.epochs_per_round,
             texture_frac=a.texture_frac, view_pair_frac=a.view_pair_frac,
-            superpoint_weights=a.superpoint, device=a.device, stats=stats)
+            superpoint_weights=a.superpoint, device=a.device, stats=stats, mesh=mesh)
     else:
         state = train(steps=a.steps, batch=a.batch, hw=(a.size, a.size), lr=a.lr, seed=a.seed,
                       out=out, desc_weight=a.desc_weight, batches_per_round=a.batches_per_round,
                       epochs_per_round=a.epochs_per_round, adapt_steps=a.adapt_steps,
                       texture_frac=a.texture_frac, scene_frac=a.scene_frac,
-                      init_weights=a.init_weights, device=a.device, stats=stats)
+                      init_weights=a.init_weights, device=a.device, stats=stats, mesh=mesh)
     return state, out
 
 
@@ -471,8 +483,17 @@ def main(argv=None) -> int:
     stats: dict = {"model": a.model, "device": str(device)}
     k1: dict = {}
     t0 = time.perf_counter()
-    with record_launches(k1, f"train_{a.model}"):
-        _, out = run(a, stats)
+    from recon3d_tpu_torch.parallel.mesh import data_parallel_mesh, mesh_devices
+
+    n_dev = mesh_devices(a.devices, device)
+    mesh = data_parallel_mesh(n_dev, device)
+    try:
+        with (mesh.record_launches if mesh else record_launches)(k1, f"train_{a.model}"):
+            _, out = run(a, stats, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+    stats["devices"] = n_dev
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     stats.update(out=out, wall_s=time.perf_counter() - t0, k1_calls_by_stage=k1,

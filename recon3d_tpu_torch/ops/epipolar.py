@@ -14,7 +14,13 @@ import math
 
 import torch
 
-from recon3d_tpu_torch.ops.linalg import einsum_hp, homogeneous, matmul_hp, smallest_eigvec
+from recon3d_tpu_torch.ops.linalg import (
+    einsum_hp,
+    homogeneous,
+    matmul_hp,
+    smallest_eigvec,
+    sum_batch_invariant,
+)
 from recon3d_tpu_torch.ops.ransac import select_best
 from recon3d_tpu_torch.ops.select import argmax_first
 from recon3d_tpu_torch.ops.triangulate import triangulate_dlt
@@ -23,12 +29,13 @@ from recon3d_tpu_torch.ops.triangulate import triangulate_dlt
 def _normalization_transform(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Hartley normalization: similarity T so that the masked points have
     zero mean and mean distance sqrt(2). x: (..., N, 2), mask: (..., N) ->
-    T (..., 3, 3)."""
+    T (..., 3, 3). Its sums do not depend on the batch's size
+    (sum_batch_invariant)."""
     w = mask[..., None]
-    count = mask.sum(dim=-1, keepdim=True).clamp_min(1.0)
-    mean = (x * w).sum(dim=-2) / count
+    count = sum_batch_invariant(mask, -1)[..., None].clamp_min(1.0)
+    mean = sum_batch_invariant(x * w, -2) / count
     d = torch.linalg.norm(x - mean[..., None, :], dim=-1)
-    mean_dist = (d * mask).sum(dim=-1) / count[..., 0]
+    mean_dist = sum_batch_invariant(d * mask, -1) / count[..., 0]
     s = math.sqrt(2.0) / mean_dist.clamp_min(1e-8)
     zero = torch.zeros_like(s)
     one = torch.ones_like(s)

@@ -14,6 +14,7 @@ dimensions of (..., H, W): a leading batch takes the place of vmap.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -22,6 +23,7 @@ import torch
 
 from recon3d_tpu_torch.io.hostimg import _resize_weights
 from recon3d_tpu_torch.kernels.warp import tent_warp, tent_warp_reference
+from recon3d_tpu_torch.ops.linalg import sum_batch_invariant
 
 _GRAY_W = (0.299, 0.587, 0.114)
 
@@ -48,6 +50,46 @@ def resize(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
         Wx = torch.from_numpy(_resize_weights(W, w)).to(img.device, img.dtype)
         out = torch.matmul(out, Wx.T)
     return out
+
+
+def resize_batch_invariant(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """`resize` whose result for a plane does not depend on how many planes
+    share its batch: each output sample adds its few non-zero taps in a
+    fixed order, rows first. On CUDA a matrix product's kernel, and so its
+    order of summation, changes with the batch's size
+    (scripts/batch_invariance_probe.py), and a mesh's shard of the dense
+    stages is a smaller batch. It rounds otherwise than `resize` (within
+    float32 rounding), so the stages that do not shard keep `resize`."""
+    H, W = img.shape[-2], img.shape[-1]
+    h, w = shape
+    out = img
+    if h != H:
+        out = _resample_last(out.transpose(-1, -2), h).transpose(-1, -2)
+    if w != W:
+        out = _resample_last(out, w)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(index, weight), each (n_out, T): the non-zero entries of each row of
+    _resize_weights(n_in, n_out), padded with zero weights to T."""
+    wm = _resize_weights(n_in, n_out)
+    nz = wm != 0
+    T = max(int(nz.sum(1).max()), 1)
+    idx = np.zeros((n_out, T), np.int64)
+    wt = np.zeros((n_out, T), np.float32)
+    for o in range(n_out):
+        cols = np.flatnonzero(nz[o])
+        idx[o, :len(cols)] = cols
+        wt[o, :len(cols)] = wm[o, cols]
+    return idx, wt
+
+
+def _resample_last(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    idx, wt = _resize_taps(x.shape[-1], n_out)
+    taps = x[..., torch.from_numpy(idx).to(x.device)]                 # (..., n_out, T)
+    return sum_batch_invariant(taps * torch.from_numpy(wt).to(x.device, x.dtype), -1)
 
 
 def _flat_coords(coords: torch.Tensor) -> torch.Tensor:

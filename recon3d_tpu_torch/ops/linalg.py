@@ -37,6 +37,23 @@ einsum_hp = torch.einsum
 _EIGH_MAX_BATCH = 16384
 
 
+def sum_batch_invariant(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x summed along `dim` in an order fixed by that axis's length alone:
+    zero-padded to a power of 2 and halved by elementwise adds. A CUDA
+    reduction splits a long axis by how many sums it computes, so a row of
+    a batch would sum otherwise in a batch of another size (a mesh's shard
+    of a chunk; scripts/batch_invariance_probe.py)."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size > n:
+        x = torch.nn.functional.pad(x, (0, size - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Full-precision matmul for small geometry matrices."""
     return torch.matmul(a, b)

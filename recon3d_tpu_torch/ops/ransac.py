@@ -55,6 +55,13 @@ def sample_indices(
     n = valid.shape[-1]
     shape = valid.shape[:-1] + (num_hypotheses, n)
     g = torch.rand(shape, generator=generator, device=valid.device)
+    return indices_from_uniform(g, valid, sample_size)
+
+
+def indices_from_uniform(g: torch.Tensor, valid: torch.Tensor, sample_size: int) -> torch.Tensor:
+    """sample_indices given its uniform draw g (..., H, N): a shard of a
+    batch takes its rows of the whole batch's draw and gets the samples the
+    whole batch gives those rows."""
     g = torch.where(valid[..., None, :] > 0, g, -1.0)
     return torch.topk(g, sample_size, dim=-1).indices
 

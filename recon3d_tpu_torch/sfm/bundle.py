@@ -17,8 +17,12 @@ PyTorch port of the single-device part of recon3d_tpu/sfm/bundle.py:
 Everything is fixed-shape: observations are padded to capacity with
 weights. Two entry points: `bundle_adjust_log`, over the pipeline's
 append-only observation log, and `bundle_adjust`, over per-point
-observation lists. The observation-sharded loop over several devices is
-not ported (ROADMAP.md, section 1, item 12).
+observation lists. With a mesh (parallel/mesh.py) the observation table
+shards over its 'data' axis: each rank holds a contiguous slice with its
+own segment indices, the parameters are replicated, and every reduction
+over observations is an all_reduce (recon3d_tpu/sfm/bundle.py:100-130,
+406-505); accept and reject come from all-reduced costs, so every rank
+takes the same step.
 
 The LM loop's condition lives on the device, so each LM iteration costs one
 host read (at most `max_iterations` accepted steps a call); the CG inside
@@ -112,14 +116,24 @@ def _reduce_contiguous(y: torch.Tensor, start: torch.Tensor, end: torch.Tensor) 
     return (c[:, end] - c[:, start]).t().reshape((end.shape[0],) + y.shape[1:])
 
 
-def _reduce_pt(data: BAData, y: torch.Tensor) -> torch.Tensor:
-    """Sum per-observation rows into point rows (the table is point-major)."""
-    return _reduce_contiguous(y, data.pt_start, data.pt_end)
+def _reduce_pt(data: BAData, y: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Sum per-observation rows into point rows (the table is point-major);
+    with a mesh, the shards' sums are added over its 'data' axis."""
+    out = _reduce_contiguous(y, data.pt_start, data.pt_end)
+    return out if mesh is None else mesh.all_reduce_(out)
 
 
-def _reduce_cam(data: BAData, y: torch.Tensor) -> torch.Tensor:
+def _reduce_cam(data: BAData, y: torch.Tensor, mesh=None) -> torch.Tensor:
     """Sum per-observation rows into camera rows via the sort permutation."""
-    return _reduce_contiguous(y[data.cam_perm], data.cam_start, data.cam_end)
+    out = _reduce_contiguous(y[data.cam_perm], data.cam_start, data.cam_end)
+    return out if mesh is None else mesh.all_reduce_(out)
+
+
+def _sum_scalar(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    s = x.sum()
+    if mesh is None:
+        return s
+    return mesh.all_reduce_(s.reshape(1))[0]
 
 
 def _per_obs_jacobians(data: BAData, robust_w: torch.Tensor):
@@ -162,6 +176,7 @@ def _lm_step(
     delta,
     cg_iters: int = 40,
     motion_only: bool = False,
+    mesh=None,
 ):
     """One LM iteration from the linearization point of `data` via the
     Schur-reduced camera system: eliminate all point blocks analytically
@@ -178,7 +193,10 @@ def _lm_step(
       - the CG space drops from 6C+3P to 6C (P >> C in SfM) and its
         conditioning improves enough that the same iteration budget
         converges,
-      - motion_only is the same program with C^{-1} = 0 (points frozen)."""
+      - motion_only is the same program with C^{-1} = 0 (points frozen),
+      - with a mesh, `data` is this rank's slice of the observations and
+        every reduction over observations is summed over the mesh's 'data'
+        axis; the camera-sized CG vectors are replicated."""
     C = data.R0.shape[0]
     P = data.X0.shape[0]
     dt, dev = data.X0.dtype, data.X0.device
@@ -190,32 +208,32 @@ def _lm_step(
     fc6[0] = 0.0  # gauge: camera 0 fixed
 
     r0_obs, Jc, Jp = _per_obs_jacobians(data, robust_w)
-    cost0 = 0.5 * (r0_obs * r0_obs).sum()
+    cost0 = 0.5 * _sum_scalar(r0_obs * r0_obs, mesh)
 
     # gradient halves
-    g_c = _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, r0_obs)) * fc6   # (C, 6)
-    g_p = _reduce_pt(data, einsum_hp("oij,oi->oj", Jp, r0_obs))          # (P, 3)
+    g_c = _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, r0_obs), mesh) * fc6   # (C, 6)
+    g_p = _reduce_pt(data, einsum_hp("oij,oi->oj", Jp, r0_obs), mesh)          # (P, 3)
 
     # per-point damped Hessian blocks and their closed-form inverses
-    Cp = _reduce_pt(data, einsum_hp("oia,oib->oab", Jp, Jp))             # (P, 3, 3)
+    Cp = _reduce_pt(data, einsum_hp("oia,oib->oab", Jp, Jp), mesh)       # (P, 3, 3)
     diag_p = torch.diagonal(Cp, dim1=-2, dim2=-1)
     Cp = Cp + damping * torch.diag_embed(diag_p) + 1e-8 * torch.eye(3, dtype=dt, device=dev)
     Cinv = torch.zeros_like(Cp) if motion_only else _inv3x3(Cp)
 
-    diag_c = _reduce_cam(data, einsum_hp("oia,oia->oa", Jc, Jc)) * fc6
+    diag_c = _reduce_cam(data, einsum_hp("oia,oia->oa", Jc, Jc), mesh) * fc6
     lam_c = damping * diag_c + 1e-8                                      # (C, 6)
 
     def B_apply(xc):  # camera-camera block (undamped)
         u = einsum_hp("oij,oj->oi", Jc, xc[data.obs_cam])
-        return _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, u))
+        return _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, u), mesh)
 
     def E_apply(xp):  # camera <- point coupling
         u = einsum_hp("oij,oj->oi", Jp, xp[data.obs_pt])
-        return _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, u))
+        return _reduce_cam(data, einsum_hp("oij,oi->oj", Jc, u), mesh)
 
     def Et_apply(xc):  # point <- camera coupling
         u = einsum_hp("oij,oj->oi", Jc, xc[data.obs_cam])
-        return _reduce_pt(data, einsum_hp("oij,oi->oj", Jp, u))
+        return _reduce_pt(data, einsum_hp("oij,oi->oj", Jp, u), mesh)
 
     def S_apply(xc):  # Schur complement: B + lam - E Cinv E^T
         xc = xc * fc6
@@ -237,7 +255,7 @@ def _lm_step(
     Cinv_o = Cinv[data.obs_pt]                                           # (O, 3, 3)
     ECE_o = einsum_hp("oab,obc,odc->oad", E_o, Cinv_o, E_o)              # (O, 6, 6)
     B_o = einsum_hp("oia,oib->oab", Jc, Jc)
-    S_blk = _reduce_cam(data, (B_o - ECE_o).reshape(-1, 36)).reshape(C, 6, 6)
+    S_blk = _reduce_cam(data, (B_o - ECE_o).reshape(-1, 36), mesh).reshape(C, 6, 6)
     S_blk = S_blk + torch.diag_embed(lam_c)
     # Gauge-fixed and observation-free cameras: their CG coordinates must
     # stay exactly zero; an identity block keeps the inverse benign there.
@@ -268,7 +286,7 @@ def _lm_step(
 
     cand = BAParams(xi=dc, dX=dp)
     r1 = _residuals(cand, data, robust_w)
-    cost1 = 0.5 * (r1 * r1).sum()
+    cost1 = 0.5 * _sum_scalar(r1 * r1, mesh)
     return cand, cost0, cost1
 
 
@@ -279,17 +297,19 @@ def _lm_loop(
     max_iters: int = 20,
     cg_iters: int = 40,
     motion_only: bool = False,
+    mesh=None,
 ):
     """Full LM optimization (accept/reject + damping schedule). Returns
     (R, t, X, accepted_iterations). Only accepted steps count towards
-    max_iters; a run of rejections ends through the damping bound."""
+    max_iters; a run of rejections ends through the damping bound. With a
+    mesh (see _lm_step) every rank runs this loop on its slice."""
     R0, t0, X0 = data.R0, data.t0, data.X0
     damping = torch.as_tensor(damping0, dtype=X0.dtype, device=X0.device)
     it = 0
     while it < max_iters:
         cand, cost0, cost1 = _lm_step(
             data._replace(R0=R0, t0=t0, X0=X0), damping, delta,
-            cg_iters=cg_iters, motion_only=motion_only,
+            cg_iters=cg_iters, motion_only=motion_only, mesh=mesh,
         )
         accept = cost1 < cost0
         Rn, tn = _apply_increment(cand.xi, R0, t0)
@@ -307,16 +327,25 @@ def _lm_loop(
     return R0, t0, X0, it
 
 
-def _lm_loop_from_log(
+def _cam_segments(obs_cam, obs_w, C: int):
+    """(cam_perm, cam_start, cam_end) of a table's rows: a stable sort by
+    camera, where zero-weight rows take key C and sort behind every
+    camera's segment (they add nothing anywhere)."""
+    cam_key = torch.where(obs_w > 0, obs_cam, C)
+    cam_perm = torch.argsort(cam_key, stable=True)
+    cam_sorted = cam_key[cam_perm]
+    cams = torch.arange(C, device=obs_cam.device)
+    return (cam_perm, torch.searchsorted(cam_sorted, cams, side="left"),
+            torch.searchsorted(cam_sorted, cams, side="right"))
+
+
+def _obs_table(
     K, R0, t0, X0,
     log_cam, log_pid, log_xy,  # (cap,) raw camera ids / (cap,) point ids / (cap, 2)
     n_obs: int,                # valid log rows
     row_of,                    # (S,): camera id -> camera row, -1 absent
-    damping0, delta, max_iters: int,
-    cg_iters: int = 24, motion_only: bool = False,
-):
-    """Build BAData from the raw arrival-order log on the device, then run
-    the LM loop. Returns (R, t, X, iters, rms_before, rms_after, n_used)."""
+) -> BAData:
+    """BAData of the raw arrival-order log, built on the device."""
     cap = log_cam.shape[0]
     C = R0.shape[0]
     P = X0.shape[0]
@@ -332,33 +361,47 @@ def _lm_loop_from_log(
     perm = torch.argsort(sort_key, stable=True)
     obs_pt_key = sort_key[perm]
     obs_cam = torch.where(valid, rows, 0)[perm]
-    obs_xy = log_xy[perm]
     obs_w = valid[perm].to(X0.dtype)
     pts = torch.arange(P, device=dev)
-    pt_start = torch.searchsorted(obs_pt_key, pts, side="left")
-    pt_end = torch.searchsorted(obs_pt_key, pts, side="right")
-    cam_key = torch.where(obs_w > 0, obs_cam, C)
-    cam_perm = torch.argsort(cam_key, stable=True)
-    cam_sorted = cam_key[cam_perm]
-    cams = torch.arange(C, device=dev)
-    cam_start = torch.searchsorted(cam_sorted, cams, side="left")
-    cam_end = torch.searchsorted(cam_sorted, cams, side="right")
-    data = BAData(
+    cam_perm, cam_start, cam_end = _cam_segments(obs_cam, obs_w, C)
+    return BAData(
         K=K, R0=R0, t0=t0, X0=X0,
         obs_cam=obs_cam, obs_pt=obs_pt_key.clamp_max(P - 1),
-        obs_xy=obs_xy, obs_w=obs_w,
-        pt_start=pt_start, pt_end=pt_end,
+        obs_xy=log_xy[perm], obs_w=obs_w,
+        pt_start=torch.searchsorted(obs_pt_key, pts, side="left"),
+        pt_end=torch.searchsorted(obs_pt_key, pts, side="right"),
         cam_perm=cam_perm, cam_start=cam_start, cam_end=cam_end,
     )
-    params = BAParams(xi=torch.zeros((C, 6), dtype=X0.dtype, device=dev),
-                      dX=torch.zeros((P, 3), dtype=X0.dtype, device=dev))
-    ones = torch.ones_like(obs_w)
-    n_used = obs_w.sum().clamp_min(1.0)
-    rms0 = torch.sqrt((_residuals(params, data, ones) ** 2).sum() / n_used)
+
+
+def _table_rows(data: BAData, lo: int, hi: int) -> BAData:
+    """Rows [lo, hi) of a point-major table as a table of their own (one
+    shard of a mesh, recon3d_tpu/sfm/bundle.py:477-505): the point bounds
+    clipped into the slice, the camera sort redone over its rows."""
+    obs_cam, obs_w = data.obs_cam[lo:hi], data.obs_w[lo:hi]
+    cam_perm, cam_start, cam_end = _cam_segments(obs_cam, obs_w, data.R0.shape[0])
+    return data._replace(
+        obs_cam=obs_cam, obs_pt=data.obs_pt[lo:hi], obs_xy=data.obs_xy[lo:hi], obs_w=obs_w,
+        pt_start=data.pt_start.clamp(lo, hi) - lo, pt_end=data.pt_end.clamp(lo, hi) - lo,
+        cam_perm=cam_perm, cam_start=cam_start, cam_end=cam_end)
+
+
+def _solve_table(data: BAData, damping0, delta, max_iters: int, cg_iters: int = 24,
+                 motion_only: bool = False, mesh=None):
+    """The LM loop over a table (with a mesh: this rank's shard). Returns
+    (R, t, X, iters, rms_before, rms_after, n_used)."""
+    C, P = data.R0.shape[0], data.X0.shape[0]
+    dev = data.X0.device
+    params = BAParams(xi=torch.zeros((C, 6), dtype=data.X0.dtype, device=dev),
+                      dX=torch.zeros((P, 3), dtype=data.X0.dtype, device=dev))
+    ones = torch.ones_like(data.obs_w)
+    n_used = _sum_scalar(data.obs_w, mesh).clamp_min(1.0)
+    rms0 = torch.sqrt(_sum_scalar(_residuals(params, data, ones) ** 2, mesh) / n_used)
     R_f, t_f, X_f, iters = _lm_loop(
-        data, damping0, delta, max_iters, cg_iters=cg_iters, motion_only=motion_only)
+        data, damping0, delta, max_iters, cg_iters=cg_iters, motion_only=motion_only,
+        mesh=mesh)
     d_fin = data._replace(R0=R_f, t0=t_f, X0=X_f)
-    rms1 = torch.sqrt((_residuals(params, d_fin, ones) ** 2).sum() / n_used)
+    rms1 = torch.sqrt(_sum_scalar(_residuals(params, d_fin, ones) ** 2, mesh) / n_used)
     return R_f, t_f, X_f, iters, rms0, rms1, n_used
 
 
@@ -390,8 +433,11 @@ def bundle_adjust(
     max_iterations: Optional[int] = None,
     kp_table: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     device="cuda",
+    mesh=None,
 ):
-    """Bundle adjustment of per-point observation lists (one device).
+    """Bundle adjustment of per-point observation lists, on one device or
+    sharded over a mesh's 'data' axis (mesh=, recon3d_tpu/sfm/bundle.py:
+    625-626,700-712).
 
     observations[p] = [(cam_id, kp_id), ...]; kp_xy[cam] = (N, 2) pixels;
     kp_table: optional precomputed (kp_flat, kp_off) concatenation of
@@ -412,7 +458,7 @@ def bundle_adjust(
     pids = np.repeat(np.arange(len(observations), dtype=np.int64), counts)[keep]
     obs_log = np.stack([pids, cams, kps], axis=1)
     return bundle_adjust_log(K, poses, points, obs_log, kp_table, config, size_hint,
-                             max_iterations, device=device)
+                             max_iterations, device=device, mesh=mesh)
 
 
 def bundle_adjust_log(
@@ -426,8 +472,10 @@ def bundle_adjust_log(
     max_iterations: Optional[int] = None,
     device_cache: Optional[dict] = None,
     device="cuda",
+    mesh=None,
 ):
-    """Bundle adjustment over an APPEND-ONLY observation log (one device).
+    """Bundle adjustment over an APPEND-ONLY observation log (one device,
+    or sharded over `mesh`'s 'data' axis, where device_cache is unused).
 
     obs_log: (O, 3) int32 rows (pid, cam_id, kp_id) in arrival order: the
     pipeline appends a row whenever it records an observation. The padded
@@ -440,7 +488,7 @@ def bundle_adjust_log(
     poses: {cam_id: (R, t)}; points: (P, 3); kp_table: (kp_flat (sumK, 2),
     kp_off (V+1,)). Returns (new_poses, new_points, stats)."""
     t_prep0 = time.time()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     config = config or BundleConfig()
     hC, hP, hO = size_hint or (0, 0, 0)
     cam_ids = sorted(poses.keys())
@@ -469,49 +517,64 @@ def bundle_adjust_log(
 
     t_up0 = time.time()
     kp_flat, kp_off = kp_table
-    cache = device_cache if device_cache is not None else {}
-    cached = cache.get("log")
+    solve_kw = dict(
+        damping0=config.init_damping, delta=config.robust_delta_px,
+        max_iters=config.max_iterations if max_iterations is None else max_iterations,
+        cg_iters=config.cg_iterations, motion_only=config.motion_only)
 
     def rows_of(log_rows):
         """(cam, pid, xy) host arrays of log rows."""
         xy = kp_flat[kp_off[log_rows[:, 1]] + log_rows[:, 2]].astype(np.float32)
         return log_rows[:, 1].astype(np.int64), log_rows[:, 0].astype(np.int64), xy
 
-    if (
-        cached is not None and cached["cap"] == cap and cached["count"] <= O
-        and cached["cam"].device.type == dev.type
-    ):
-        count = cached["count"]
-        dev_cam, dev_pid, dev_xy = cached["cam"], cached["pid"], cached["xy"]
-        if O > count:
-            tc, tp, txy = rows_of(obs_log[count:O])
-            dev_cam[count:O] = torch.from_numpy(tc).to(dev)
-            dev_pid[count:O] = torch.from_numpy(tp).to(dev)
-            dev_xy[count:O] = torch.from_numpy(txy).to(dev)
-    else:
-        # any cache miss (no cache, another capacity or device, a log that
-        # shrank) is a full upload
-        full_cam = np.zeros(cap, np.int64)
-        full_pid = np.zeros(cap, np.int64)
-        full_xy = np.zeros((cap, 2), np.float32)
-        full_cam[:O], full_pid[:O], full_xy[:O] = rows_of(obs_log[:O])
-        dev_cam = torch.from_numpy(full_cam).to(dev)
-        dev_pid = torch.from_numpy(full_pid).to(dev)
-        dev_xy = torch.from_numpy(full_xy).to(dev)
-    cache["log"] = {"cap": cap, "count": O, "cam": dev_cam, "pid": dev_pid, "xy": dev_xy}
-    t_upload = time.time() - t_up0
-    t_prep = time.time() - t_prep0
+    def padded_log(cap):
+        full = (np.zeros(cap, np.int64), np.zeros(cap, np.int64),
+                np.zeros((cap, 2), np.float32))
+        full[0][:O], full[1][:O], full[2][:O] = rows_of(obs_log[:O])
+        return full
 
-    t_solve0 = time.time()
-    R_f, t_f, X_f, iters, rms0, rms1, n_used = _lm_loop_from_log(
-        torch.from_numpy(np.asarray(K, np.float32)).to(dev),
-        torch.from_numpy(R0).to(dev), torch.from_numpy(t0).to(dev),
-        torch.from_numpy(X0).to(dev), dev_cam, dev_pid, dev_xy, O,
-        torch.from_numpy(row_of).to(dev),
-        config.init_damping, config.robust_delta_px,
-        config.max_iterations if max_iterations is None else max_iterations,
-        cg_iters=config.cg_iterations, motion_only=config.motion_only,
-    )
+    if mesh is not None:
+        # every rank builds the table from the same raw log and keeps its
+        # contiguous rows; the capacity is rounded up to a multiple of 'data'
+        n_data = mesh.shape["data"]
+        cap = -(-cap // n_data) * n_data
+        per = cap // n_data
+        common = dict(K=np.asarray(K, np.float32), R0=R0, t0=t0, X0=X0, log=padded_log(cap),
+                      n_obs=O, row_of=row_of, kw=solve_kw)
+        payloads = [dict(common, rows=(d * per, (d + 1) * per))
+                    for d in map(mesh.data_index_of, range(mesh.world))]
+        t_upload = time.time() - t_up0
+        t_prep = time.time() - t_prep0
+        t_solve0 = time.time()
+        R_f, t_f, X_f, iters, rms0, rms1, n_used = mesh.call(_ba_shard, payloads)[0]
+    else:
+        cache = device_cache if device_cache is not None else {}
+        cached = cache.get("log")
+        if (
+            cached is not None and cached["cap"] == cap and cached["count"] <= O
+            and cached["cam"].device.type == dev.type
+        ):
+            count = cached["count"]
+            dev_cam, dev_pid, dev_xy = cached["cam"], cached["pid"], cached["xy"]
+            if O > count:
+                tc, tp, txy = rows_of(obs_log[count:O])
+                dev_cam[count:O] = torch.from_numpy(tc).to(dev)
+                dev_pid[count:O] = torch.from_numpy(tp).to(dev)
+                dev_xy[count:O] = torch.from_numpy(txy).to(dev)
+        else:
+            # any cache miss (no cache, another capacity or device, a log
+            # that shrank) is a full upload
+            dev_cam, dev_pid, dev_xy = (torch.from_numpy(a).to(dev) for a in padded_log(cap))
+        cache["log"] = {"cap": cap, "count": O, "cam": dev_cam, "pid": dev_pid, "xy": dev_xy}
+        t_upload = time.time() - t_up0
+        t_prep = time.time() - t_prep0
+
+        t_solve0 = time.time()
+        R_f, t_f, X_f, iters, rms0, rms1, n_used = _solve_table(_obs_table(
+            torch.from_numpy(np.asarray(K, np.float32)).to(dev),
+            torch.from_numpy(R0).to(dev), torch.from_numpy(t0).to(dev),
+            torch.from_numpy(X0).to(dev), dev_cam, dev_pid, dev_xy, O,
+            torch.from_numpy(row_of).to(dev)), **solve_kw)
     R_final = R_f.cpu().numpy()
     t_final = t_f.cpu().numpy()
     new_poses = {c: (R_final[i], t_final[i]) for c, i in cam_row.items()}
@@ -524,3 +587,18 @@ def bundle_adjust_log(
         "solve_fetch_s": round(time.time() - t_solve0, 3),
     }
     return new_poses, new_points, stats
+
+
+def _ba_shard(mesh, p: dict):
+    """One rank's LM loop over its rows of the observation table; rank 0
+    returns (R, t, X, iterations, rms_before, rms_after, n_used)."""
+    if mesh.model_index:
+        return None
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(mesh.device)
+
+    data = _obs_table(t(p["K"]), t(p["R0"]), t(p["t0"]), t(p["X0"]), *map(t, p["log"]),
+                      p["n_obs"], t(p["row_of"]))
+    out = _solve_table(_table_rows(data, *p["rows"]), mesh=mesh, **p["kw"])
+    return None if mesh.rank else out

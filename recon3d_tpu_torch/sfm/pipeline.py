@@ -10,9 +10,10 @@ pipeline's device.
 
 reconstruct_global replaces the registration waves by rotation and
 translation averaging (sfm/global_sfm.py); neural_mode swaps the SIFT
-front end for SuperPoint + LightGlue (neural/matcher.py). Not ported yet,
-and raising NotImplementedError: sharding over several devices
-(ROADMAP.md, section 1, item 12).
+front end for SuperPoint + LightGlue (neural/matcher.py). With a mesh
+(parallel/mesh.py) pair matching shards its pair rows and bundle
+adjustment its observations over the mesh's 'data' axis
+(recon3d_tpu/sfm/pipeline.py:290-298,483-490,564,1411-1444,1571).
 
 Dynamic-size state (matches, tracks, observations, keypoint tables) lives
 on the host in numpy; device calls are padded to geometric buckets so that
@@ -218,6 +219,8 @@ class SfMPipeline:
       fast_mode: fewer features / looser ratio.
       neural_mode: SuperPoint + LightGlue front end instead of SIFT.
       config: full ReconstructionConfig (overrides the fast_mode presets).
+      mesh: a parallel.mesh.Mesh (rank 0 on `device`): pair matching and
+        bundle adjustment shard over its 'data' axis.
       device: "cuda" (default; an error without a GPU) or "cpu".
     """
 
@@ -231,9 +234,7 @@ class SfMPipeline:
         prescale_hints: Tuple[float, ...] = (),
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device matching is not ported yet (ROADMAP.md, section 1, item 12)")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.config = config or (
             ReconstructionConfig.fast() if fast_mode else ReconstructionConfig()
@@ -396,12 +397,12 @@ class SfMPipeline:
             if self.neural_mode:
                 results = self.matcher.match_pairs_batched(
                     self.features, pairs, self._generator,
-                    hw=self.image_set.gray.shape[1:3])
+                    hw=self.image_set.gray.shape[1:3], mesh=self.mesh)
             else:
                 tm: Dict[str, float] = {}
                 results = match_pairs_batched(
                     self.features_stacked, pairs, self._generator,
-                    self.config.match, timings=tm,
+                    self.config.match, timings=tm, mesh=self.mesh,
                 )
                 self.stats["match_detail_s"] = {k: round(v, 3) for k, v in tm.items()}
             mm = self.config.match.min_matches
@@ -457,7 +458,7 @@ class SfMPipeline:
         feats = self.extractor.extract_batch(up.cpu().numpy())
         res = match_pairs_batched(
             feats, [(local[i], local[j]) for (i, j) in failed],
-            self._generator, mc,
+            self._generator, mc, mesh=self.mesh,
         )
         xy_up = feats.xy.cpu().numpy()       # upscaled-pixel coords
         valid_np = feats.valid.cpu().numpy()
@@ -1218,6 +1219,7 @@ class SfMPipeline:
             max_iterations=max_iters,
             device_cache=self._ba_log_cache,
             device=self.device,
+            mesh=self.mesh,
         )
         self.poses = {c: (np.asarray(R), np.asarray(t)) for c, (R, t) in new_poses.items()}
         self.points3d = new_points.astype(np.float32)
@@ -1332,7 +1334,7 @@ class SfMPipeline:
         feats = FeatureExtractor(cfg.sift, device=self.device).extract_batch(up)
         res = match_pairs_batched(
             feats, [(local[i], local[j]) for (i, j) in pairs],
-            self._generator, cfg.match,
+            self._generator, cfg.match, mesh=self.mesh,
         )
         xy_up = feats.xy.cpu().numpy()
         valid_np = feats.valid.cpu().numpy()

@@ -76,17 +76,41 @@ def test_cli_mvs_from_colmap_matches_jax_cli(colmap_scene, tmp_path):
     assert set(s["stage_times_s"]) == {"sparse_sfm", "patchmatch_mvs"}
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"]])
-def test_unported_modes_exit_nonzero(colmap_scene, tmp_path, flags, capsys):
-    img_dir, model = colmap_scene
-    argv = [img_dir, "--mvs", "--output", str(tmp_path / "o"), "--device", "cpu", *flags,
-            "--from-colmap", model]
-    with pytest.raises(SystemExit) as e:
-        main(argv)
-    assert e.value.code not in (0, None)
-    assert "not yet ported" in str(e.value.code)
-    assert "ROADMAP.md, section 1, item" in str(e.value.code)
-    assert not (tmp_path / "o").exists()
+def test_cli_devices_2_matches_devices_1(sfm_scene, tmp_path):
+    """`IMAGES --mvs --stereo --mesh --device cpu --devices 2`: the CLI starts
+    a second rank itself, matching, bundle adjustment, PatchMatch, the
+    sweep and the TSDF fusion shard over the two, and the products are
+    those of --devices 1 within tests/test_cli_mesh.py:55-110's bounds
+    (sparse points 5e-3, colours equal, dense point counts within 2%, the
+    clouds' medians 0.05 and 5/95th percentiles 0.5 apart); --stats-json
+    counts K1's calls on both ranks."""
+    img_dir, _ = sfm_scene
+    outs = {}
+    for n in (1, 2):
+        out, stats = tmp_path / f"d{n}", tmp_path / f"d{n}.json"
+        assert main([img_dir, "--mvs", "--stereo", "--mesh", "--mesh-resolution", "48",
+                     "--seed", "1", "--device", "cpu", "--devices", str(n),
+                     "--output", str(out), "--stats-json", str(stats)]) == 0
+        outs[n] = (out, json.loads(stats.read_text()))
+    (o1, s1), (o2, s2) = outs[1], outs[2]
+    assert s1["devices"] == 1 and s2["devices"] == 2
+    pm, cm = load_ply(str(o2 / "sparse.ply"))
+    ps, cs = load_ply(str(o1 / "sparse.ply"))
+    assert len(pm) == len(ps) > 30
+    np.testing.assert_allclose(pm, ps, atol=5e-3)
+    np.testing.assert_array_equal(cm, cs)
+    for name in ("dense_mvs.ply", "dense_stereo.ply"):
+        a, _ = load_ply(str(o2 / name))
+        b, _ = load_ply(str(o1 / name))
+        assert abs(len(a) - len(b)) <= 0.02 * min(len(a), len(b)) and len(b) > 100, name
+        np.testing.assert_allclose(np.median(a, 0), np.median(b, 0), atol=0.05, err_msg=name)
+        np.testing.assert_allclose(np.percentile(a, [5, 95], axis=0),
+                                   np.percentile(b, [5, 95], axis=0), atol=0.5, err_msg=name)
+    assert (o2 / "mesh.ply").exists() and s2["mesh_faces"] > 0
+    for stage in ("patchmatch_mvs", "plane_sweep", "tsdf_mesh"):
+        rec = s2["k1_calls_by_stage"][stage]
+        assert len(rec["by_rank"]) == 2 and all(r["plain"] > 0 for r in rec["by_rank"])
+        assert rec["plain"] == sum(r["plain"] for r in rec["by_rank"]) and rec["kernel"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ from recon3d_tpu.io import hostimg as jax_hostimg
 from recon3d_tpu.ops import image as jimg
 from recon3d_tpu_torch.io import hostimg
 from recon3d_tpu_torch.ops import image as timg
+from recon3d_tpu_torch.ops.linalg import sum_batch_invariant
 
 # float32 weight-matrix and integral-image arithmetic, summed in another
 # order than XLA's: 1e-5 absolute on values in [0, 1] (box sums of up to
@@ -30,6 +31,35 @@ def test_resize_matches_jax_image_resize(rng, shape, out):
     ref = jax.image.resize(jnp.asarray(img), shape[:-2] + out, method="linear")
     got = timg.resize(torch.from_numpy(img), out)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 512, 700])
+def test_sum_batch_invariant_sums_each_row_alone(rng, n):
+    """ops/linalg.sum_batch_invariant: the sum within float32 rounding, and
+    each row of a batch summed bit for bit as in a batch of another size
+    (the sums of resize and of the 8-point solver's normalisation)."""
+    x = rng.standard_normal((6, n, 3)).astype(np.float32)
+    t = torch.from_numpy(x)
+    got = sum_batch_invariant(t, 1)
+    np.testing.assert_allclose(got.numpy(), x.astype(np.float64).sum(1), rtol=0,
+                               atol=1e-5 * max(n, 1))
+    for lo, hi in ((0, 3), (3, 6), (2, 3)):
+        assert torch.equal(sum_batch_invariant(t[lo:hi], 1), got[lo:hi])
+
+
+@pytest.mark.parametrize("shape,out", [((5, 48, 64), (12, 16)), ((5, 12, 16), (48, 64)),
+                                       ((5, 33, 47), (14, 20)), ((5, 30, 40), (30, 80))])
+def test_resize_batch_invariant_matches_jax_and_its_batch(rng, shape, out):
+    """resize_batch_invariant (the dense stages' resize): jax.image.resize
+    within ATOL, and a plane resized alone equal to its row of the batch,
+    bit for bit (each output adds its taps in a fixed order)."""
+    img = rng.random(shape).astype(np.float32)
+    ref = jax.image.resize(jnp.asarray(img), shape[:-2] + out, method="linear")
+    whole = timg.resize_batch_invariant(torch.from_numpy(img), out)
+    np.testing.assert_allclose(whole.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    for v in range(shape[0]):
+        one = timg.resize_batch_invariant(torch.from_numpy(img[v:v + 1]), out)
+        assert torch.equal(one, whole[v:v + 1])
 
 
 @pytest.mark.parametrize("size", [3, 7, 11])

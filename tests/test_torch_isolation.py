@@ -79,6 +79,21 @@ with tempfile.TemporaryDirectory() as tmp:
     save_params_npz(net, tmp + "/sp.npz")
     back = load_params_npz(tmp + "/sp.npz", SuperPointNet())
     assert torch.equal(back.conv1a.weight, net.conv1a.weight.half().float())
+from recon3d_tpu_torch.dense.distributed import distributed_plane_sweep
+from recon3d_tpu_torch.parallel import make_mesh
+from recon3d_tpu_torch.parallel.workers import probe
+with make_mesh(devices=2, device="cpu") as mesh:
+    out = mesh.call(probe, [{"value": 1}, {"value": 2}])
+    assert [o["sum"] for o in out] == [3.0, 3.0]
+    worker_pkgs = out[1]["packages"]
+    eye = np.eye(3, dtype=np.float32)
+    d, c, _ = distributed_plane_sweep(
+        g[:2], np.stack([g[2:4], g[3:5]]), K.numpy(), np.stack([eye] * 2), np.zeros((2, 3)),
+        np.stack([[eye, eye]] * 2), np.float32([[[0.1, 0, 0], [0.2, 0, 0]]] * 2),
+        np.float32([1.0, 5.0]), mesh=mesh, num_depths=8)
+    assert d.shape == (2, 32, 40) and np.isfinite(d).all()
+assert "torch" in worker_pkgs and "recon3d_tpu_torch" in worker_pkgs
+assert not {"jax", "jaxlib", "recon3d_tpu"} & set(worker_pkgs), worker_pkgs
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "recon3d_tpu"
              or m.startswith("recon3d_tpu."))

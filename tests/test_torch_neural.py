@@ -150,8 +150,25 @@ def test_matcher_kind_and_weight_errors_follow_jax():
     auto = NeuralMatcher(NeuralConfig(descriptor_dim=128), device="cpu")
     auto._ensure_params()
     assert auto.matcher_kind == "nn"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        NeuralMatcher(device="cpu").match_pairs_batched([], [], None, mesh=object())
+
+
+def test_match_pairs_batched_over_two_ranks(gray):
+    """The pair rows of each chunk sharded over two CPU ranks: the nn
+    matcher's result and the generator's state are one device's, bit for
+    bit (tests/test_torch_distributed_sfm.py holds them to JAX's mesh)."""
+    from recon3d_tpu_torch.parallel import make_mesh
+
+    tm = NeuralMatcher(NeuralConfig(matcher="nn", max_keypoints=KP), device="cpu")
+    feats = [tm.extract(g) for g in gray]
+    g1, g2 = torch.Generator().manual_seed(2), torch.Generator().manual_seed(2)
+    single = tm.match_pairs_batched(feats, PAIRS, g1, chunk=2, hw=(128, 160))
+    with make_mesh(devices=2, device="cpu") as mesh:
+        sharded = tm.match_pairs_batched(feats, PAIRS, g2, chunk=2, hw=(128, 160), mesh=mesh)
+    assert torch.equal(g1.get_state(), g2.get_state())
+    for a, b in zip(single, sharded):
+        assert a[:2] == b[:2] and a[5:] == b[5:] and a[5] >= 20
+        for k in (2, 3, 4):
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 # -- SuperPoint ----------------------------------------------------------------

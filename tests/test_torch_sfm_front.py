@@ -204,10 +204,29 @@ def test_default_device_is_cuda_and_later_stages_name_the_roadmap():
     assert pipe._rescue_unregistered() == 0
     neural = tpipe.SfMPipeline(neural_mode=True, device="cpu")
     assert neural.matcher is neural.extractor and neural.matcher.matcher_kind == "nn"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpipe.SfMPipeline(mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         pipe.reconstruct()
+
+
+def test_match_image_pairs_over_two_ranks(eight_views):
+    """SfMPipeline(mesh=) over two CPU ranks: match_image_pairs shards each
+    chunk's pair rows and keeps the one-device pipeline's pairs, matches
+    and F bit for bit (the bridging and the keypoint links follow)."""
+    from recon3d_tpu_torch.parallel import make_mesh
+
+    scene, _, port = eight_views
+    with make_mesh(devices=2, device="cpu") as mesh:
+        pipe = tpipe.SfMPipeline(config=_config(ReconstructionConfig, 8), mesh=mesh,
+                                 device="cpu")
+        assert pipe.mesh is mesh
+        pipe.set_image_set(image_set_from_arrays(scene["images"],
+                                                 Camera.from_matrix(scene["K"])))
+        pipe.extract_features()
+        pipe.match_image_pairs()
+    assert sorted(pipe.matches) == sorted(port.matches)
+    for key, m in port.matches.items():
+        for field in ("idx1", "idx2", "F"):
+            np.testing.assert_array_equal(pipe.matches[key][field], m[field])
 
 
 def test_reconstruct_runs_the_front_end_then_stops_at_the_back_end():
