@@ -6,10 +6,10 @@ Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port, from csrc/, with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     every shape the main paths give it (K1 at the 15 shapes of its five
+     every shape the main paths give it (K1 at the 16 shapes of its six
      call sites: PatchMatch, the TSDF lookup, the plane sweep, SuperPoint's
-     descriptor sampling in neural SfM and in LightGlue's training), bit
-     for bit
+     descriptor sampling in neural SfM and in LightGlue's training, and
+     calibration's corner refinement), bit for bit
      in every variant its launch planner can pick there, with times (each
      variant, the plain version, one library call as a yardstick) and the
      least time the card could take; the TSDF shape once more with one
@@ -297,6 +297,10 @@ K1_SHAPES = [
     # LightGlue's training (train_lightglue): one 128x128 image's 256 coarse
     # descriptor planes of 16x16 at its 256 keypoint slots
     ("train_lightglue", 256, 16, 16, 256, "keypoints"),
+    # calibration's corner refinement (calib/corners.py::
+    # refine_corners_gradient): a 480x640 board's two gradient planes at the
+    # 11x11 windows of its 54 corners, shared by both planes; 4 a board
+    ("calibration", 2, 480, 640, 54 * 121, "windows"),
 ]
 K1_REPLACES = "recon3d_tpu/ops/warp_pallas.py:98"
 # Floating-point operations of one bilinear sample: 2 floor, 4 fraction
@@ -362,6 +366,11 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
     neural SfM, 256 of 128x128 in LightGlue's training) inside its 4-pixel
     border, in the cells' units, (x + 0.5) / 8 - 0.5; planes of unit
     descriptors.
+    kind "windows": calibration's corner refinement. One set of points for
+    all N planes: the 11x11 integer offset grid of refine_corners_gradient
+    around each of M/121 corners, the corners of a 9-wide board of 25-40 px
+    squares, turned by up to 0.5 rad, at subpixel positions near the image
+    centre; planes of gradients (normal values).
     kind "uniform": uniform points over a margin around the image (every
     tap a cache miss of its own), in the coordinate layout of `shared`."""
     dev = "cuda"
@@ -390,6 +399,20 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
         px = 4 + torch.rand((1, M, 2), generator=gen, device=dev) * torch.tensor(
             [8.0 * W - 9, 8.0 * H - 9], device=dev)
         coords = (px + 0.5) / 8.0 - 0.5
+    elif kind == "windows":
+        planes = torch.randn((N, H, W), generator=gen, device=dev)
+        n, cols = M // 121, 9
+        a = torch.rand(4, generator=gen, device=dev)
+        gy, gx = torch.meshgrid(torch.arange(n // cols, device=dev) - (n // cols - 1) / 2,
+                                torch.arange(cols, device=dev) - (cols - 1) / 2, indexing="ij")
+        th = a[1] - 0.5
+        rot = torch.stack([torch.stack([th.cos(), -th.sin()]), torch.stack([th.sin(), th.cos()])])
+        centre = torch.stack([W / 2 + (a[2] - 0.5) * W / 4, H / 2 + (a[3] - 0.5) * H / 4])
+        q = (25 + 15 * a[0]) * torch.stack([gx, gy], dim=-1).reshape(-1, 2) @ rot.T + centre
+        q = q + torch.rand(q.shape, generator=gen, device=dev) - 0.5
+        ar = torch.arange(-5, 6, dtype=torch.float32, device=dev)
+        oy, ox = torch.meshgrid(ar, ar, indexing="ij")
+        coords = (q[:, None, :] + torch.stack([ox, oy], dim=-1).reshape(-1, 2)).reshape(1, M, 2)
     else:
         planes = torch.rand((N, H, W), generator=gen, device=dev)
         if kind == "fields":
@@ -412,11 +435,30 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
     return planes, coords.contiguous()
 
 
-def k1_bytes(N: int, H: int, W: int, Nc: int, M: int) -> int:
-    """K1's byte count: each input read once (planes, coordinates), each
+def k1_texels(N: int, H: int, W: int, coords: torch.Tensor) -> int:
+    """The plane texels that K1 must read on these points: the distinct
+    taps of the valid points of each coordinate row, once on each plane
+    that row serves (all N planes for shared points)."""
+    x, y = coords[..., 0], coords[..., 1]
+    valid = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+    total = 0
+    for row in range(coords.shape[0]):
+        x0 = x[row][valid[row]].floor().long()
+        y0 = y[row][valid[row]].floor().long()
+        x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
+        hit = torch.zeros(H * W, dtype=torch.bool, device=coords.device)
+        for yi, xi in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)):
+            hit[yi * W + xi] = True
+        total += int(hit.sum())
+    return total * (N if coords.shape[0] == 1 else 1)
+
+
+def k1_bytes(N: int, H: int, W: int, Nc: int, M: int, texels=None) -> int:
+    """K1's byte count: each input read once (the planes' texels that the
+    points touch, k1_texels, else the whole planes; the coordinates), each
     output written once (samples 4 B per plane and point, validity 1 B per
     point of each coordinate row: shared points have one validity row)."""
-    return N * H * W * 4 + Nc * M * (8 + 1) + N * M * 4
+    return (N * H * W if texels is None else texels) * 4 + Nc * M * (8 + 1) + N * M * 4
 
 
 def k1_library_call(planes, coords):
@@ -464,13 +506,13 @@ def k1_variants(planes, coords, coords_u, what: str) -> dict:
     return out
 
 
-def k1_bound(N: int, H: int, W: int, Nc: int, M: int) -> dict:
-    n_bytes = k1_bytes(N, H, W, Nc, M)
+def k1_bound(N: int, H: int, W: int, Nc: int, M: int, texels: int) -> dict:
+    n_bytes = k1_bytes(N, H, W, Nc, M, texels)
     n_ops = N * M * K1_OPS_PER_SAMPLE
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "ops": n_ops}
+            "bytes": n_bytes, "texels": texels, "ops": n_ops}
 
 
 def kernel_phase() -> list:
@@ -483,7 +525,7 @@ def kernel_phase() -> list:
     shapes = []
     for stage, N, H, W, M, kind in K1_SHAPES:
         what = f"{stage}: {N}x{H}x{W} planes, {M} points each"
-        shared = kind in ("voxels", "keypoints")
+        shared = kind in ("voxels", "keypoints", "windows")
         planes, coords = k1_inputs(N, H, W, M, kind, gen)
         coords_u = k1_inputs(1 if shared else N, H, W, M, "uniform", gen)[1]
         plan = warp.plan_for(planes, coords)
@@ -499,7 +541,7 @@ def kernel_phase() -> list:
         issue_ms = cuda_ms(k1, 200, prefill=False)
         plain_ms = cuda_ms(lambda: warp.tent_warp_reference(planes, coords), 20)
         library_ms = cuda_ms(k1_library_call(planes, coords), 200)
-        bound = k1_bound(N, H, W, coords.shape[0], M)
+        bound = k1_bound(N, H, W, coords.shape[0], M, k1_texels(N, H, W, coords))
         shapes.append({
             "stage": stage, "shape_key": warp.shape_key(planes, coords),
             "planes": [N, H, W], "samples_per_plane": M,
@@ -523,7 +565,7 @@ def kernel_phase() -> list:
                   "variant": warp.plan_for(one, coords).variant,
                   "variant_ms": {v: cuda_ms(lambda: warp.tent_warp(one, coords, variant=v), 200)
                                  for v in warp.variants_for(1, H, W, 1)},
-                  **k1_bound(1, H, W, 1, M)}
+                  **k1_bound(1, H, W, 1, M, k1_texels(1, H, W, coords))}
             check_k1(one, coords, f"{what} (one plane)")
             shapes[-1]["one_plane"] = n1
             print(f"[kernels] tent_warp on {what}, one plane: {n1['ms']:.4f} ms "
@@ -2002,6 +2044,395 @@ def _print_b(b: dict, what: str = "(b) world 2 sharing the card, gloo") -> None:
           f"({b['wall_s']:.1f} s, {b['spawn_s']:.1f} s to start the ranks)", flush=True)
 
 
+# The calibration phase: CALIB_BOARDS chessboards of CALIB_PATTERN inner
+# corners rendered at CALIB_SIZE through CALIB_K and the distortion of
+# tests/test_calibration.py (DIST_GT), the poses drawn as that test draws
+# them (tests/torch_chessboard.board_poses: the test's 240x320 geometry at
+# twice the size). Gate of the card's calibrate_camera_robust against the
+# truth: fx, fy within 1%, cx, cy within 2 px, k1, k2 within 0.01, overall
+# RMS under 0.5 px (the JAX test's bound).
+CALIB_PATTERN, CALIB_SIZE, CALIB_BOARDS = (9, 6), (480, 640), 20
+CALIB_K = np.array([[600.0, 0, 320.0], [0, 596.0, 240.0], [0, 0, 1]], np.float32)
+CALIB_DIST = np.array([-0.12, 0.05, 0.001, -0.0015, 0.0], np.float32)
+CALIB_GATE = {"f_rel": 0.01, "c_px": 2.0, "dist_atol": 0.01, "rms_px": 0.5}
+# The card against the CPU: corners within 1e-3 px, or within 1.5 times the
+# CPU's own spread under a 2^-22 scaling of the board where two peak pixels
+# nearly tie (tests/test_torch_calib.py); K within 1e-4 relative.
+CALIB_CORNER_TOL, CALIB_K_RTOL = 1e-3, 1e-4
+
+
+def calibration_phase(work: Path, card: str, shapes: list) -> dict:
+    """recon3d_tpu_torch.calib on the card: CALIB_BOARDS rendered boards
+    (tests/torch_chessboard.py, no JAX), calibrate_camera_robust with K1's
+    counts set to 0 just before and read just after (4 launches a board at
+    the refinement shape, none plain), gated at CALIB_GATE; the same call on
+    the CPU, K within CALIB_K_RTOL; every board's corners from
+    find_chessboard on the card against the CPU's; each step timed on both
+    by calibrate_camera_robust's StageTimer; save_calibration ->
+    load_calibration -> validate_calibration; the module CLI on the PNGs."""
+    from PIL import Image
+
+    from recon3d_tpu_torch.calib import calibrate as cal
+    from recon3d_tpu_torch.calib import corners as cor
+    from recon3d_tpu_torch.calib.validate import validate_calibration
+    from recon3d_tpu_torch.camera import load_calibration
+    from recon3d_tpu_torch.runtime.profiling import StageTimer
+    from tests.torch_chessboard import board_poses, render_chessboard
+
+    t0 = time.perf_counter()
+    poses, truth = board_poses(CALIB_BOARDS, CALIB_K, CALIB_DIST, CALIB_SIZE, CALIB_PATTERN)
+    images = [render_chessboard(CALIB_K, CALIB_DIST, r, t, CALIB_SIZE, CALIB_PATTERN)
+              for r, t in poses]
+    render_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    warp.counts.reset()
+    t0 = time.perf_counter()
+    res = cal.calibrate_camera_robust(images, CALIB_PATTERN, min_images=10, verbose=False,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = warp.counts.kernel, warp.counts.plain
+    by_stage = {"calibration": {"kernel": launches, "plain": plain,
+                                "kernel_by_shape": dict(warp.counts.by_shape),
+                                "kernel_by_variant": dict(warp.counts.by_variant)}}
+    timers = {"cuda": StageTimer(), "cpu": StageTimer()}
+    t0 = time.perf_counter()
+    cal.calibrate_camera_robust(images, CALIB_PATTERN, min_images=10, verbose=False,
+                                device="cuda", timer=timers["cuda"])
+    torch.cuda.synchronize()
+    wall_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_cpu = cal.calibrate_camera_robust(images, CALIB_PATTERN, min_images=10, verbose=False,
+                                          device="cpu", timer=timers["cpu"])
+    wall_cpu = time.perf_counter() - t0
+
+    if res is None or res_cpu is None:
+        raise AssertionError("calibration: no calibration on the card or the CPU")
+    K, dist = res["K"], res["dist"]
+    failed = []
+    for i, name in ((0, "fx"), (1, "fy")):
+        if not abs(K[i, i] - CALIB_K[i, i]) / CALIB_K[i, i] < CALIB_GATE["f_rel"]:
+            failed.append(f"{name} {K[i, i]:.3f}")
+    for i, name in ((0, "cx"), (1, "cy")):
+        if not abs(K[i, 2] - CALIB_K[i, 2]) < CALIB_GATE["c_px"]:
+            failed.append(f"{name} {K[i, 2]:.3f}")
+    if not np.abs(dist[:2] - CALIB_DIST[:2]).max() < CALIB_GATE["dist_atol"]:
+        failed.append(f"dist {dist[:2]}")
+    if not res["overall_rms"] < CALIB_GATE["rms_px"]:
+        failed.append(f"rms {res['overall_rms']:.4f} px")
+    k_rel = float(np.abs(K - res_cpu["K"]).max() / np.abs(res_cpu["K"]).max())
+    if res["used_indices"] != res_cpu["used_indices"] or not k_rel < CALIB_K_RTOL:
+        failed.append(f"card against CPU: used {res['used_indices']} / "
+                      f"{res_cpu['used_indices']}, K {k_rel:.2e} relative")
+    n_found = len(res["used_indices"])
+    key = f"2x{CALIB_SIZE[0]}x{CALIB_SIZE[1]}/1x{CALIB_PATTERN[0] * CALIB_PATTERN[1] * 121}"
+    if plain != 0 or by_stage["calibration"]["kernel_by_shape"].get(key, 0) < 4 * n_found:
+        failed.append(f"K1: {by_stage['calibration']}, {n_found} boards")
+    check_k1_shapes(by_stage, shapes, "calibration")
+
+    corners = {dev: [cor.find_chessboard(img, CALIB_PATTERN, device=dev) for img in images]
+               for dev in ("cuda", "cpu")}
+    corner_err, spread = [], {}
+    for b, (c_card, c_cpu) in enumerate(zip(corners["cuda"], corners["cpu"])):
+        if c_card is None or c_cpu is None:
+            failed.append(f"board {b}: found on the card {c_card is not None}, "
+                          f"on the CPU {c_cpu is not None}")
+            continue
+        err = float(np.abs(c_card - c_cpu).max())
+        corner_err.append(err)
+        if err > CALIB_CORNER_TOL:
+            spread[b] = max(float(np.abs(cor.find_chessboard(np.float32(images[b] * s),
+                                                             CALIB_PATTERN, device="cpu")
+                                         - c_cpu).max()) for s in (1 + 2 ** -22, 1 - 2 ** -22))
+            if not err <= 1.5 * spread[b]:
+                failed.append(f"board {b}: corners {err:.2e} px from the CPU's "
+                              f"(its own spread {spread[b]:.2e})")
+    truth_err = float(np.median([np.median(np.linalg.norm(c - t, axis=1))
+                                 for c, t in zip(corners["cuda"], truth)
+                                 if c is not None]))
+
+    out_dir = work / "calibration"
+    cal.save_calibration(str(out_dir), res)
+    loaded = load_calibration(str(out_dir / "calibration_data.npz"))
+    if not np.allclose(loaded.K.cpu().numpy(), K, rtol=1e-6):
+        failed.append("load_calibration does not read back K")
+    used = [images[i] for i in res["used_indices"]]
+    errors = validate_calibration(used, K, dist, res["rvecs"], res["tvecs"], CALIB_PATTERN,
+                                  verbose=False, device="cuda")
+    valid = errors[~np.isnan(errors)]
+    if not (len(valid) >= 10 and np.median(valid) < 1.0):
+        failed.append(f"validate_calibration: {errors}")
+
+    png_dir = work / "boards"
+    png_dir.mkdir()
+    for i, img in enumerate(images):
+        Image.fromarray(np.uint8(np.round(img * 255))).save(png_dir / f"board_{i:02d}.png")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "recon3d_tpu_torch.calib.calibrate", str(png_dir),
+                        "-o", str(work / "calib_cli")], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if r.returncode != 0 or not (work / "calib_cli" / "calibration_data.npz").exists():
+        failed.append(f"the module CLI: exit {r.returncode}: {r.stdout[-2000:]}{r.stderr[-2000:]}")
+    cli_K = np.load(work / "calib_cli" / "calibration_data.npz")["mtx"] if r.returncode == 0 \
+        else None
+
+    report = {
+        "phase": "calibration", "card": card, "boards": CALIB_BOARDS,
+        "image_size": list(CALIB_SIZE), "render_s": render_s,
+        "wall_s": wall, "wall_warm_s": wall_warm, "wall_cpu_s": wall_cpu, "used": n_found,
+        "K": K.tolist(), "dist": dist.tolist(), "overall_rms": res["overall_rms"],
+        "K_cpu": res_cpu["K"].tolist(), "K_rel_card_cpu": k_rel,
+        "corner_err_card_cpu_px": corner_err, "cpu_spread_px": spread,
+        "corner_err_truth_median_px": truth_err,
+        "seconds": {dev: t.as_dict() for dev, t in timers.items()},
+        "validate_median_px": float(np.median(valid)) if len(valid) else None,
+        "cli_s": cli_s, "cli_K": None if cli_K is None else cli_K.tolist(),
+        "k1_by_stage": by_stage,
+    }
+    print(json.dumps(report), flush=True)
+    print(f"[calibration] on {card}: {n_found}/{CALIB_BOARDS} boards, fx {K[0, 0]:.3f} fy "
+          f"{K[1, 1]:.3f} cx {K[0, 2]:.3f} cy {K[1, 2]:.3f} k1 {dist[0]:.4f} k2 {dist[1]:.4f}, "
+          f"rms {res['overall_rms']:.4f} px; card {wall:.2f} s (again: {wall_warm:.2f}), CPU "
+          f"{wall_cpu:.2f} s; steps "
+          + "; ".join(f"{dev} " + ", ".join(f"{k} {v:.3f}" for k, v in t.as_dict().items())
+                      for dev, t in timers.items())
+          + f" s; corners card-CPU max {max(corner_err):.2e} px; K1 {launches} launches",
+          flush=True)
+    if failed:
+        raise AssertionError("calibration fails its gate: " + "; ".join(failed))
+    return report
+
+
+def _socket_path() -> str:
+    import os
+    import uuid
+
+    d = tempfile.gettempdir()
+    return os.path.join(d if len(d) <= 60 else "/tmp", f"r3d_{uuid.uuid4().hex[:8]}.sock")
+
+
+def _pong(sock: str) -> dict:
+    import socket
+
+    from recon3d_tpu_torch.runtime import serve
+
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.settimeout(600.0)
+        s.connect(sock)
+        serve._send(s, {"ping": True})
+        return json.loads(s.makefile("r").readline())
+
+
+SERVE_READ_TIMEOUT_S = 3.0
+
+
+def serve_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
+    """The serve daemon (`python -m recon3d_tpu_torch.serve`) on the card:
+    seconds to its first pong; two identical requests of the north-star
+    `IMAGES --mvs --calibration K` through serve.request, each gated at
+    SFM_SPARSE_GATE and CLI_DENSE_GATE, with K1 at the kernel phase's
+    shapes and no plain call, their sparse.ply and dense_mvs.ply equal bit
+    for bit; the same argv as a fresh CLI process; a 16-view request
+    through ReconstructionWorker, its dense_mvs.ply found and rendered;
+    then the faults the daemon must survive: a bad argv, a client that
+    closes after sending, a silent connection, and a second daemon started
+    on the socket while a request runs (the daemon held stopped until the
+    second one exits). Shut down, the socket gone."""
+    import filecmp
+    import os
+    import signal
+    import socket
+    import threading
+
+    from PIL import Image
+
+    from recon3d_tpu_torch.gui.app import find_result_file
+    from recon3d_tpu_torch.gui.viewer import render_turntable
+    from recon3d_tpu_torch.runtime import serve
+    from recon3d_tpu_torch.runtime.worker import ReconstructionWorker
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sock = _socket_path()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    log = open(work / "serve.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "recon3d_tpu_torch.serve", "--socket", sock,
+                             "--quiet", "--read-timeout", str(SERVE_READ_TIMEOUT_S)],
+                            cwd=str(REPO), env=env, stdout=log, stderr=subprocess.STDOUT)
+    out = {"phase": "serve", "card": card, "socket": sock}
+    try:
+        while not serve.ping(sock, timeout=1.0):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError(f"serve: the daemon did not come up "
+                                     f"({(work / 'serve.log').read_text()[-3000:]})")
+            time.sleep(0.05)
+        out["first_pong_s"] = time.perf_counter() - t0
+
+        def argv(name):
+            d = work / name
+            return [str(work / "images"), "--mvs", "--calibration", str(work / "calibration.npz"),
+                    "--output", str(d), "--stats-json", str(d / "stats.json")]
+
+        def submit(name):
+            logs = []
+            t = time.perf_counter()
+            rc = serve.request(argv(name), sock, on_log=logs.append)
+            wall = time.perf_counter() - t
+            if rc != 0:
+                raise AssertionError(f"serve {name}: exit {rc}: " + "\n".join(logs[-30:]))
+            d = work / name
+            st = json.loads((d / "stats.json").read_text())
+            poses = read_poses(d / "poses.npz")
+            errs = pose_errors(poses, scene)
+            check_sparse(st, errs, SFM_SPARSE_GATE, f"serve {name}")
+            dense, _ = load_ply(str(d / "dense_mvs.ply"))
+            med, share = gate(to_scene_frame(dense, poses, scene), *CLI_DENSE_GATE, f"serve {name}")
+            k1 = st["k1_calls_by_stage"]
+            check_k1_shapes(k1, shapes, f"serve {name}")
+            if k1.get("patchmatch_mvs", {}).get("kernel", 0) == 0:
+                raise AssertionError(f"serve {name}: K1 never launched by PatchMatch")
+            if st["device"] == "cpu":
+                raise AssertionError(f"serve {name}: ran on the CPU")
+            return {"wall_s": wall, "num_cameras": st["num_cameras"],
+                    "mean_reproj_px": st["mean_reproj_px"], "pose_errors": errs,
+                    "dense_points": len(dense), "dense_median": med, "dense_share": share,
+                    "stage_times_s": st["stage_times_s"], "k1_by_stage": k1}
+
+        out["request1"] = submit("serve_r1")
+        out["request2"] = submit("serve_r2")
+        same = {f: filecmp.cmp(work / "serve_r1" / f, work / "serve_r2" / f, shallow=False)
+                for f in ("sparse.ply", "dense_mvs.ply")}
+        out["identical"] = same
+
+        fresh = argv("serve_fresh")
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "recon3d_tpu_torch.cli", *fresh], cwd=str(REPO),
+                           env=env, capture_output=True, text=True, timeout=900)
+        out["fresh_process_s"] = time.perf_counter() - t
+        if r.returncode != 0:
+            raise AssertionError(f"serve: the fresh CLI process failed: {r.stdout[-2000:]}"
+                                 f"{r.stderr[-2000:]}")
+        out["fresh_stage_times_s"] = json.loads(
+            (work / "serve_fresh" / "stats.json").read_text())["stage_times_s"]
+        print(f"[serve] on {card}: first pong {out['first_pong_s']:.2f} s; request 1 (cold) "
+              f"{out['request1']['wall_s']:.2f} s, request 2 (warm) "
+              f"{out['request2']['wall_s']:.2f} s, a fresh CLI process "
+              f"{out['fresh_process_s']:.2f} s (client-side wall); outputs of the two requests "
+              f"identical: {same}", flush=True)
+
+        logs, statuses, done = [], [], []
+        w = ReconstructionWorker(on_log=logs.append, on_status=statuses.append,
+                                 on_finished=done.append)
+        t = time.perf_counter()
+        ok = w.run(str(work / "images"), {"mvs": True, "max_images": 16,
+                                          "output": str(work / "serve_r3"),
+                                          "serve_socket": sock, "serve_autostart": False})
+        out["worker_s"] = time.perf_counter() - t
+        result = find_result_file(str(work / "serve_r3"))
+        if not (ok and done == [True] and "Step 4/4: Dense Reconstruction..." in statuses
+                and result and result.endswith("dense_mvs.ply")):
+            raise AssertionError(f"serve: the worker's request: ok {ok}, statuses {statuses}, "
+                                 f"result {result}: " + "\n".join(logs[-30:]))
+        frames = render_turntable(result, str(work / "turntable"), n_frames=4,
+                                  image_size=(240, 320))
+        background = int(0.08 * 255)
+        for f in frames:
+            if not (np.asarray(Image.open(f)) != background).any():
+                raise AssertionError(f"serve: turntable frame {f} is background only")
+        out["worker_statuses"] = statuses
+
+        # the faults: a bad argv
+        rc = serve.request(["/nonexistent/images", "--fast"], sock)
+        if rc == 0 or not serve.ping(sock):
+            raise AssertionError(f"serve: a bad argv returned {rc} or took the daemon down")
+        # a client that closes right after sending a short request
+        served = _pong(sock)["requests_served"]
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+            s.connect(sock)
+            serve._send(s, {"argv": [str(work / "images"), "--fast", "--max-images", "6",
+                                     "--output", str(work / "serve_gone")]})
+        pong = _pong(sock)
+        while pong["requests_served"] == served:
+            time.sleep(0.2)
+            pong = _pong(sock)
+        if pong["requests_served"] != served + 1 or not (work / "serve_gone" / "sparse.ply").exists():
+            raise AssertionError(f"serve: the vanished client's job: {pong}")
+        # a connection that sends nothing
+        dropped = pong["dropped"]
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+            s.settimeout(60.0)
+            s.connect(sock)
+            t = time.perf_counter()
+            eof = s.recv(1) == b""
+            waited = time.perf_counter() - t
+        pong = _pong(sock)
+        if not (eof and pong["dropped"] == dropped + 1
+                and SERVE_READ_TIMEOUT_S * 0.9 <= waited < SERVE_READ_TIMEOUT_S + 30):
+            raise AssertionError(f"serve: the silent connection: eof {eof}, {waited:.2f} s, {pong}")
+        out["silent_dropped_after_s"] = waited
+        # a second daemon on the socket while request 4 runs. Once request 4
+        # holds the daemon, the daemon is stopped (SIGSTOP) until the second
+        # daemon has exited, so the request is still running when the second
+        # daemon probes, however long its start or the request takes
+        r4 = {}
+        argv4 = argv("serve_r4") + ["--mesh", "--stereo", "--export-colmap"]
+        th = threading.Thread(target=lambda: r4.update(rc=serve.request(argv4, sock)))
+        t4 = time.perf_counter()
+        th.start()
+        t = time.perf_counter()
+        while serve.probe(sock, timeout=0.5) != "busy":
+            if not th.is_alive() or time.perf_counter() - t > 60:
+                raise AssertionError(f"serve: request 4 {r4} never held the daemon")
+            time.sleep(0.05)
+        os.kill(proc.pid, signal.SIGSTOP)
+        try:
+            if not th.is_alive():
+                raise AssertionError(f"serve: request 4 {r4} ended before the daemon was held")
+            t = time.perf_counter()
+            second = subprocess.run([sys.executable, "-m", "recon3d_tpu_torch.serve", "--socket",
+                                     sock], cwd=str(REPO), env=env, capture_output=True,
+                                    text=True, timeout=300)
+            out["second_daemon_s"] = time.perf_counter() - t
+        finally:
+            os.kill(proc.pid, signal.SIGCONT)
+        th.join(timeout=900)
+        out["request4_s"] = time.perf_counter() - t4
+        if not (second.returncode != 0 and "another server is live" in second.stderr
+                and "(busy)" in second.stderr):
+            raise AssertionError(f"serve: a second daemon: exit {second.returncode}, "
+                                 f"{second.stderr[-2000:]}")
+        if r4.get("rc") != 0 or not serve.ping(sock) or not os.path.exists(sock):
+            raise AssertionError(f"serve: request 4 {r4} or the daemon after the second daemon")
+        out["request4_sparse_identical"] = filecmp.cmp(
+            work / "serve_r1" / "sparse.ply", work / "serve_r4" / "sparse.ply", shallow=False)
+        out["second_daemon"] = second.stderr.strip().splitlines()[-1]
+        out["final_pong"] = _pong(sock)
+        if not serve.shutdown(sock):
+            raise AssertionError("serve: shutdown not acknowledged")
+        rc = proc.wait(timeout=60)
+        if rc != 0 or os.path.exists(sock):
+            raise AssertionError(f"serve: the daemon exited {rc}; socket left: "
+                                 f"{os.path.exists(sock)}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    print(json.dumps(out), flush=True)
+    print(f"[serve] worker request (16 views) {out['worker_s']:.2f} s; faults survived: a bad "
+          f"argv, a vanished client, a silent connection (dropped after "
+          f"{out['silent_dropped_after_s']:.2f} s), a second daemon ({out['second_daemon']}); "
+          f"request 4 (--mesh --stereo --export-colmap) {out['request4_s']:.2f} s, its sparse.ply "
+          f"identical to request 1's: {out['request4_sparse_identical']}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"serve: two identical requests differ: {same}")
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
@@ -2051,34 +2482,40 @@ def main() -> int:
         neural = phase("neural", neural_phase, work, scene, card, shapes)
         trained = phase("train", train_phase, work, scene, card, shapes)
         md = phase("multi_device", multi_device_phase, scene, card)
+        calib = phase("calibration", calibration_phase, work, card, shapes)
+        served = phase("serve", serve_phase, work, scene, card, shapes)
     phase("rescue", rescue_phase, card)
     phase("dense_sift_budget", dense_sift_budget, card)
     print("[time] phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # Launches at each shape of the kernel phase: on the main path
-    # (cli_images), on the neural path (SuperPoint's shape) and on the
-    # training path (LightGlue's training shape).
+    # (cli_images), on the neural path (SuperPoint's shape), on the
+    # training path (LightGlue's training shape) and in calibration (the
+    # refinement's shape).
     neural_k1 = neural["cli"]["k1_by_stage"]
     train_k1 = trained["lightglue"]["k1"]
+    calib_k1 = calib["k1_by_stage"]
+    serve_k1 = {name: served[name]["k1_by_stage"] for name in ("request1", "request2")}
+    run_keys = ("launches", "neural_run_launches", "train_run_launches",
+                "calibration_run_launches")
     for sh in shapes:
-        for key, by_stage in (("launches", images["k1_by_stage"]),
-                              ("neural_run_launches", neural_k1),
-                              ("train_run_launches", train_k1)):
+        for key, by_stage in zip(run_keys, (images["k1_by_stage"], neural_k1, train_k1,
+                                            calib_k1)):
             sh[key] = by_stage.get(sh["stage"], {}).get("kernel_by_shape", {}).get(
                 sh["shape_key"], 0)
-    unseen = [sh["shape_key"] for sh in shapes if sh["launches"] == 0
-              and sh["neural_run_launches"] == 0 and sh["train_run_launches"] == 0]
+    unseen = [sh["shape_key"] for sh in shapes if not any(sh[k] for k in run_keys)]
     if unseen:
         raise AssertionError(f"the main paths never launched K1 at the kernel phase's "
                              f"shapes {unseen}: {images['k1_by_stage']}, {neural_k1}, "
-                             f"{train_k1}")
+                             f"{train_k1}, {calib_k1}")
     # every launch at a kernel-phase shape, in the variant the planner
     # picks there (the neural and training runs' were checked in their phases)
     check_k1_shapes(images["k1_by_stage"], shapes, "cli_images")
     by_variant = {}
     for st in (list(images["k1_by_stage"].values()) + list(neural_k1.values())
-               + list(train_k1.values())):
+               + list(train_k1.values()) + list(calib_k1.values())
+               + [v for k1 in serve_k1.values() for v in k1.values()]):
         for v, n in st["kernel_by_variant"].items():
             by_variant[v] = by_variant.get(v, 0) + n
     head = shapes[0]
@@ -2101,7 +2538,9 @@ def main() -> int:
         "name": "tent_warp", "route": "cuda",
         "source": "recon3d_tpu_torch/csrc/warp.cu", "replaces": K1_REPLACES,
         "launches": (images["k1_launches"] + neural["cli"]["k1_launches"]
-                     + trained["lightglue"]["k1_launches"]),
+                     + trained["lightglue"]["k1_launches"]
+                     + calib_k1["calibration"]["kernel"]
+                     + sum(v["kernel"] for k1 in serve_k1.values() for v in k1.values())),
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2115,6 +2554,8 @@ def main() -> int:
         "global_sfm_run_launches": gsfm["cli"]["k1_by_stage"],
         "train_run_launches": train_k1,
         "multi_device_run_launches_by_rank": md["b"]["k1_by_rank"],
+        "calibration_run_launches": calib_k1,
+        "serve_run_launches": serve_k1,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

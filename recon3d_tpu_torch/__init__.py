@@ -6,10 +6,16 @@ hand-written CUDA kernels live in csrc/ and are bound in kernels/, each
 built on its first launch, not on import. Entry points run on "cuda" unless
 the caller passes device="cpu".
 
-Ported: incremental SfM (`SfMPipeline.reconstruct`), the dense backends
-(PatchMatch, plane sweep, dense SIFT) and the TSDF mesh, COLMAP and PLY
-I/O, stage checkpoints, and the CLI `python -m recon3d_tpu_torch.cli`
-(see ROADMAP.md for what is still to come).
+Ported, everything the JAX package does: calibration (calib/), the
+SIFT and neural front ends (features/, neural/, with training),
+incremental and global SfM with bundle adjustment (sfm/), the dense
+backends (PatchMatch, plane sweep, dense SIFT) and the TSDF mesh (dense/),
+COLMAP and PLY I/O (io/), stage checkpoints and profiling (runtime/),
+several devices over torch.distributed (parallel/), the CLI
+`python -m recon3d_tpu_torch.cli`, the serve daemon
+`python -m recon3d_tpu_torch.serve` and its process worker
+(runtime/worker.py), the GUI's headless core (gui/; its Qt window needs
+PyQt5) and the COLMAP wrapper (tools/).
 """
 
 from recon3d_tpu_torch.camera import Camera, CameraPose, load_calibration

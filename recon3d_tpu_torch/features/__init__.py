@@ -1,1 +1,5 @@
-"""Subpackage of the PyTorch port (see recon3d_tpu_torch/__init__.py)."""
+"""Classical feature front end (PyTorch port of recon3d_tpu/features)."""
+
+from recon3d_tpu_torch.features.frontend import FeatureExtractor, FeatureMatcher
+
+__all__ = ["FeatureExtractor", "FeatureMatcher"]

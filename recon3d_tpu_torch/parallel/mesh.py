@@ -446,3 +446,46 @@ def data_rows(mesh: Mesh, n: int) -> List[Tuple[int, int]]:
     data index get the same rows)."""
     parts = shard_rows(n, mesh.shape[DATA_AXIS])
     return [parts[mesh.data_index_of(r)] for r in range(mesh.world)]
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """Where an array lives on a mesh, the port's counterpart of a jax
+    NamedSharding: `axis` of an ndim-dimensional array split over 'data'
+    (shard_rows), or held whole by every rank when axis is None."""
+
+    mesh: Mesh
+    ndim: int
+    axis: Optional[int]
+
+
+def data_sharding(mesh: Mesh, ndim: int, axis: int = 0) -> Sharding:
+    """Shard array axis `axis` over the data mesh axis, replicate the rest."""
+    return Sharding(mesh, ndim, axis)
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, 0, None)
+
+
+def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0):
+    """Pad a host array so axis size is divisible by `multiple`.
+
+    Returns (padded, original_size). Sharded batch axes must divide the mesh.
+    """
+    n = x.shape[axis]
+    rem = (-n) % multiple
+    if rem == 0:
+        return x, n
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (0, rem)
+    return np.pad(x, pad), n
+
+
+def shard_batch(x, mesh: Mesh, axis: int = 0) -> torch.Tensor:
+    """This rank's rows of x along `axis` under data_sharding(mesh, x.ndim,
+    axis), as a tensor on the rank's device: the JAX function's device_put
+    seen from one rank (every rank of a data index holds the same rows)."""
+    t = torch.as_tensor(x)
+    lo, hi = data_rows(mesh, t.shape[axis])[mesh.rank]
+    return t.narrow(axis, lo, hi - lo).to(mesh.device)

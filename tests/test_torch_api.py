@@ -31,6 +31,69 @@ def test_exports_match_the_jax_package():
         assert getattr(recon3d_tpu_torch, name).__name__ == getattr(recon3d_tpu, name).__name__
 
 
+SUBPACKAGES = ("calib", "dense", "features", "io", "ops", "parallel", "runtime", "sfm")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_match_the_jax_package(sub):
+    """Each subpackage's __all__ is the JAX package's, and every name binds
+    the port's object of the same name."""
+    import importlib
+
+    jmod = importlib.import_module(f"recon3d_tpu.{sub}")
+    tmod = importlib.import_module(f"recon3d_tpu_torch.{sub}")
+    assert tmod.__all__ == jmod.__all__
+    for name in tmod.__all__:
+        got, ref = getattr(tmod, name), getattr(jmod, name)
+        if hasattr(ref, "__name__"):
+            assert got.__name__ == ref.__name__
+            assert got.__module__.startswith("recon3d_tpu_torch.")
+        else:
+            assert got == ref
+
+
+def test_neural_exports_hold_the_jax_names():
+    """The neural subpackage exports the JAX package's three names and,
+    beyond them, the training API that the JAX package keeps in its
+    modules (neural/train.py, neural/weights.py)."""
+    import recon3d_tpu.neural as jneural
+    import recon3d_tpu_torch.neural as tneural
+
+    assert tneural.__all__[:3] == jneural.__all__
+    assert tneural.HAS_NEURAL is True
+    for name in tneural.__all__:
+        assert getattr(tneural, name) is not None
+
+
+def test_shard_batch_and_sharding_records():
+    """parallel's JAX names on the port's mesh: pad_to_multiple is the
+    numpy copy, and shard_batch gives each rank the rows of a 'data'
+    sharding (shard_rows), as jax.device_put of data_sharding places them."""
+    from recon3d_tpu.parallel import pad_to_multiple as jax_pad
+    from recon3d_tpu_torch.parallel import (
+        data_sharding, make_mesh, pad_to_multiple, replicated, shard_batch)
+    from recon3d_tpu_torch.parallel.mesh import Mesh
+
+    x = np.arange(30, dtype=np.float32).reshape(5, 6)
+    for axis, m in ((0, 4), (1, 4), (0, 5)):
+        got, n = pad_to_multiple(x, m, axis)
+        ref, nj = jax_pad(x, m, axis)
+        np.testing.assert_array_equal(got, ref)
+        assert n == nj
+    with make_mesh(devices=1, device="cpu") as mesh:
+        s = data_sharding(mesh, 3, axis=1)
+        assert (s.mesh, s.ndim, s.axis) == (mesh, 3, 1) and replicated(mesh).axis is None
+        t = shard_batch(x, mesh)
+        assert torch.equal(t, torch.from_numpy(x)) and t.device == mesh.device
+    rows = []
+    for rank in range(2):
+        m = Mesh(shape={"data": 2, "model": 1}, rank=rank, device=torch.device("cpu"),
+                 backend="gloo", share_device=False, timeout_s=1.0)
+        rows.append(shard_batch(x, m, axis=1).numpy())
+    np.testing.assert_array_equal(rows[0], x[:, :3])
+    np.testing.assert_array_equal(rows[1], x[:, 3:])
+
+
 def _rotations(rng, n):
     q = rng.normal(size=(n, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
@@ -139,6 +202,16 @@ _IMPORT_PROBE = """
 import sys
 from recon3d_tpu_torch import *
 import recon3d_tpu_torch
+from recon3d_tpu_torch.calib import *
+from recon3d_tpu_torch.dense import *
+from recon3d_tpu_torch.features import *
+from recon3d_tpu_torch.io import *
+from recon3d_tpu_torch.ops import *
+from recon3d_tpu_torch.parallel import *
+from recon3d_tpu_torch.runtime import *
+from recon3d_tpu_torch.sfm import *
+import recon3d_tpu_torch.serve, recon3d_tpu_torch.runtime.warmup
+import recon3d_tpu_torch.gui.app, recon3d_tpu_torch.tools.run_colmap
 from recon3d_tpu_torch.kernels import warp
 assert sorted(recon3d_tpu_torch.__all__) == sorted(n for n in dir() if n in recon3d_tpu_torch.__all__)
 print("COUNTS", warp.counts.kernel, warp.counts.plain, warp._lib is None)

@@ -94,6 +94,18 @@ with make_mesh(devices=2, device="cpu") as mesh:
     assert d.shape == (2, 32, 40) and np.isfinite(d).all()
 assert "torch" in worker_pkgs and "recon3d_tpu_torch" in worker_pkgs
 assert not {"jax", "jaxlib", "recon3d_tpu"} & set(worker_pkgs), worker_pkgs
+import recon3d_tpu_torch.calib, recon3d_tpu_torch.runtime.serve, recon3d_tpu_torch.runtime.worker
+import recon3d_tpu_torch.gui.viewer, recon3d_tpu_torch.gui.app, recon3d_tpu_torch.tools.run_colmap
+import recon3d_tpu_torch.serve
+from recon3d_tpu_torch.calib.corners import detect_corners, refine_corners_gradient
+cand = detect_corners(torch.from_numpy(g[0]), max_corners=16)
+assert cand.xy.shape == (16, 2) and bool(cand.valid[0])
+q = refine_corners_gradient(torch.from_numpy(g[0]), cand.xy[:4])
+assert q.shape == (4, 2) and torch.isfinite(q).all()
+from recon3d_tpu_torch.gui.viewer import render_pointcloud
+assert render_pointcloud(pts, None, (24, 32)).shape == (24, 32, 3)
+from recon3d_tpu_torch.runtime.worker import build_command
+assert build_command("d", {"device": "cpu"})[2] == "recon3d_tpu_torch.cli"
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "recon3d_tpu"
              or m.startswith("recon3d_tpu."))
