@@ -1,15 +1,16 @@
 """Smoke test of the PyTorch/CUDA port (recon3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # 10 to 15 minutes on an H100, by the host
+    python3 chip_smoke.py    # 11 to 15 minutes on an H100, by the host
 
 Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port, from csrc/, with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     every shape the main paths give it (K1 at the 16 shapes of its six
+     every shape the main paths give it (K1 at the 17 shapes of its seven
      call sites: PatchMatch, the TSDF lookup, the plane sweep, SuperPoint's
-     descriptor sampling in neural SfM and in LightGlue's training, and
-     calibration's corner refinement), bit for bit
+     descriptor sampling in neural SfM and in LightGlue's training,
+     calibration's corner refinement and the undistortion at load), bit
+     for bit
      in every variant its launch planner can pick there, with times (each
      variant, the plain version, one library call as a yardstick) and the
      least time the card could take; the TSDF shape once more with one
@@ -99,7 +100,21 @@ Phases, each of which passes or raises:
      make_pair_train_step step within 1e-5 relative, K1's launches by rank
      (both non-zero, no plain call) and the gloo all_reduce of a TSDF grid
      timed; (c) part (b) over NCCL when two cards are visible, else one
-     line saying why it did not run.
+     line saying why it did not run;
+ 19. calibration: 20 rendered boards through calibrate_camera_robust on the
+     card and the CPU, K1 counted at the refinement's shape, the module
+     CLI;
+ 20. serve: the daemon, two north-star requests, a fresh CLI process, the
+     worker and the faults the daemon must survive;
+ 21. robustness: tests/test_robustness.py's distorted capture end to end
+     on the card (tests/torch_robust_check.py: 6 views of 192x256 rendered
+     through a k1/k2/p1/p2 lens without JAX, loaded with the lens as
+     calibration, SfM at the JAX test's gates), K1's counts set to 0 just
+     before the load and read just after: one launch at the undistortion
+     shape, no plain call;
+ 22. bench: bench_cuda.main (PatchMatch throughput, 1 window of 4
+     repetitions) and scripts/bench_stages_torch.py --quick, their JSON
+     lines printed, K1 never in its plain version.
 
 Every phase's wall time is printed, and their total, before the JSON lines.
 
@@ -301,6 +316,11 @@ K1_SHAPES = [
     # refine_corners_gradient): a 480x640 board's two gradient planes at the
     # 11x11 windows of its 54 corners, shared by both planes; 4 a board
     ("calibration", 2, 480, 640, 54 * 121, "windows"),
+    # the undistortion at load (io/dataset.py -> ops/image.py::
+    # undistort_image) of the robustness phase's distorted capture: the 3
+    # colour planes of its 6 views of 192x256 at the 49,152 forward-distorted
+    # pixel positions they share, one launch for the set
+    ("load", 18, 192, 256, 192 * 256, "undistort"),
 ]
 K1_REPLACES = "recon3d_tpu/ops/warp_pallas.py:98"
 # Floating-point operations of one bilinear sample: 2 floor, 4 fraction
@@ -371,6 +391,11 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
     around each of M/121 corners, the corners of a 9-wide board of 25-40 px
     squares, turned by up to 0.5 rad, at subpixel positions near the image
     centre; planes of gradients (normal values).
+    kind "undistort": the undistortion at load. One set of points for all
+    N planes: every pixel's forward-distorted position under the
+    robustness phase's lens (tests/torch_robust_check.DIST, f = 0.9 W, the
+    principal point at the centre), as ops/image.py::undistort_image makes
+    them; planes of 8-bit colour levels in [0, 1].
     kind "uniform": uniform points over a margin around the image (every
     tap a cache miss of its own), in the coordinate layout of `shared`."""
     dev = "cuda"
@@ -399,6 +424,18 @@ def k1_inputs(N: int, H: int, W: int, M: int, kind: str, gen: torch.Generator):
         px = 4 + torch.rand((1, M, 2), generator=gen, device=dev) * torch.tensor(
             [8.0 * W - 9, 8.0 * H - 9], device=dev)
         coords = (px + 0.5) / 8.0 - 0.5
+    elif kind == "undistort":
+        from recon3d_tpu_torch.ops.image import distort_points
+        from tests.torch_robust_check import DIST
+
+        planes = torch.randint(0, 256, (N, H, W), generator=gen, device=dev) / 255.0
+        f = 0.9 * W
+        ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                                torch.arange(W, device=dev, dtype=torch.float32),
+                                indexing="ij")
+        d = distort_points(torch.stack([(xs - W / 2) / f, (ys - H / 2) / f], dim=-1),
+                           torch.from_numpy(DIST).to(dev))
+        coords = (d * f + torch.tensor([W / 2, H / 2], device=dev)).reshape(1, M, 2)
     elif kind == "windows":
         planes = torch.randn((N, H, W), generator=gen, device=dev)
         n, cols = M // 121, 9
@@ -525,7 +562,7 @@ def kernel_phase() -> list:
     shapes = []
     for stage, N, H, W, M, kind in K1_SHAPES:
         what = f"{stage}: {N}x{H}x{W} planes, {M} points each"
-        shared = kind in ("voxels", "keypoints", "windows")
+        shared = kind in ("voxels", "keypoints", "windows", "undistort")
         planes, coords = k1_inputs(N, H, W, M, kind, gen)
         coords_u = k1_inputs(1 if shared else N, H, W, M, "uniform", gen)[1]
         plan = warp.plan_for(planes, coords)
@@ -2433,6 +2470,92 @@ def serve_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
     return out
 
 
+def robustness_phase(work: Path, card: str, shapes: list) -> dict:
+    """tests/test_robustness.py's distorted capture on the card
+    (tests/torch_robust_check.py): rendered through the lens without JAX,
+    written as PNGs, loaded with the lens as calibration (K1's counts set
+    to 0 just before the load and read just after: the undistortion's one
+    launch, at a kernel-phase shape in the planner's variant, no plain
+    call), reconstructed and held to the JAX test's gates."""
+    from tests.torch_robust_check import GATE, check_gate, distorted_capture
+
+    out = distorted_capture(work / "robustness", "cuda")
+    failed = check_gate(out)
+    check_k1_shapes(out["k1_by_stage"], shapes, "robustness")
+    load = out["k1_by_stage"]["load"]
+    if load["kernel"] != 1:
+        failed.append(f"K1 at the load: {load}")
+    out["card"] = card
+    print(json.dumps({"phase": "robustness", **out}), flush=True)
+    sec = out["seconds"]
+    print(f"[robustness] distorted capture on {card}: {out['num_cameras']} cameras, "
+          f"{out['mean_reproj_px']:.4f} px, median relative rotation error "
+          f"{out['median_rel_rot_deg']:.4f} deg (gates >= {GATE['min_cameras']}, < "
+          f"{GATE['mean_reproj_px']}, < {GATE['median_rel_rot_deg']}); K1 at the load "
+          f"{load['kernel_by_shape']} ({load['kernel_by_variant']}), plain {load['plain']}; "
+          f"render {sec['render']:.2f} s, load {sec['load']:.3f} s, SfM {sec['sfm']:.2f} s",
+          flush=True)
+    if failed:
+        raise AssertionError("robustness fails its gate: " + "; ".join(failed))
+    return out
+
+
+def bench_phase(card: str) -> dict:
+    """The port's two benchmark scripts in this process: bench_cuda.main at
+    1 window of 4 repetitions, the same 4 calls once more under the
+    profiler (the device's busy and idle share of the window), and
+    scripts/bench_stages_torch.py --quick. Their JSON lines are printed;
+    each value must be finite and positive and K1's plain version never
+    called."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import bench_cuda
+
+    row = bench_cuda.main(["--windows", "1", "--reps", "4"])
+    run = bench_cuda.make_run(bench_cuda.V, bench_cuda.PATCH, bench_cuda.NUM_ITERATIONS,
+                              torch.device("cuda"))
+    profile = profile_run(lambda: [run(r + 1) for r in range(4)], row["windows_s"][0],
+                          "bench_cuda, 4 calls", "tent_warp", top=6)
+    spec = importlib.util.spec_from_file_location(
+        "bench_stages_torch", REPO / "scripts" / "bench_stages_torch.py")
+    stages = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stages)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = stages.main(["--quick"])
+    stages_s = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    failed = [] if rc == 0 else [f"bench_stages_torch exited {rc}"]
+    for r in [row] + lines:
+        if not (math.isfinite(r["value"]) and r["value"] > 0):
+            failed.append(f"{r['metric']}: {r['value']}")
+    metrics = [r["metric"] for r in lines]
+    if metrics != ["sift_extract", "match_verify", "plane_sweep", "patchmatch_mvs",
+                   "bundle_adjust_full", "tsdf_integration"]:
+        failed.append(f"bench_stages_torch printed {metrics}")
+    pm = next((r for r in lines if r["metric"] == "patchmatch_mvs"), {})
+    launches = {"bench_cuda": row["k1_launches"],
+                "bench_stages_patchmatch": pm.get("k1_launches", 0)}
+    by_variant = {}
+    for r in (row, pm):
+        for v, n in r.get("k1_by_variant", {}).items():
+            by_variant[v] = by_variant.get(v, 0) + n
+    if row["k1_plain"] or pm.get("k1_plain") or not all(launches.values()):
+        failed.append(f"K1 in the benchmarks: {launches}, plain {row['k1_plain']} / "
+                      f"{pm.get('k1_plain')}")
+    print(f"[bench] on {card}: bench_cuda {row['value']:.4f} {row['unit']} (windows "
+          f"{row['windows_s']}), bench_stages_torch --quick {stages_s:.1f} s: "
+          + ", ".join(f"{r['metric']} {r['value']:.4g} {r['unit']}" for r in lines), flush=True)
+    if failed:
+        raise AssertionError("bench: " + "; ".join(failed))
+    return {"bench_cuda": row, "bench_cuda_profile": profile, "stages": lines,
+            "k1_launches": launches, "k1_by_variant": by_variant}
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
@@ -2484,40 +2607,47 @@ def main() -> int:
         md = phase("multi_device", multi_device_phase, scene, card)
         calib = phase("calibration", calibration_phase, work, card, shapes)
         served = phase("serve", serve_phase, work, scene, card, shapes)
+        robust = phase("robustness", robustness_phase, work, card, shapes)
     phase("rescue", rescue_phase, card)
     phase("dense_sift_budget", dense_sift_budget, card)
+    bench = phase("bench", bench_phase, card)
     print("[time] phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # Launches at each shape of the kernel phase: on the main path
     # (cli_images), on the neural path (SuperPoint's shape), on the
-    # training path (LightGlue's training shape) and in calibration (the
-    # refinement's shape).
+    # training path (LightGlue's training shape), in calibration (the
+    # refinement's shape) and at the robustness phase's load (the
+    # undistortion's shape).
     neural_k1 = neural["cli"]["k1_by_stage"]
     train_k1 = trained["lightglue"]["k1"]
     calib_k1 = calib["k1_by_stage"]
+    robust_k1 = robust["k1_by_stage"]
     serve_k1 = {name: served[name]["k1_by_stage"] for name in ("request1", "request2")}
     run_keys = ("launches", "neural_run_launches", "train_run_launches",
-                "calibration_run_launches")
+                "calibration_run_launches", "robustness_run_launches")
     for sh in shapes:
         for key, by_stage in zip(run_keys, (images["k1_by_stage"], neural_k1, train_k1,
-                                            calib_k1)):
+                                            calib_k1, robust_k1)):
             sh[key] = by_stage.get(sh["stage"], {}).get("kernel_by_shape", {}).get(
                 sh["shape_key"], 0)
     unseen = [sh["shape_key"] for sh in shapes if not any(sh[k] for k in run_keys)]
     if unseen:
         raise AssertionError(f"the main paths never launched K1 at the kernel phase's "
                              f"shapes {unseen}: {images['k1_by_stage']}, {neural_k1}, "
-                             f"{train_k1}, {calib_k1}")
+                             f"{train_k1}, {calib_k1}, {robust_k1}")
     # every launch at a kernel-phase shape, in the variant the planner
     # picks there (the neural and training runs' were checked in their phases)
     check_k1_shapes(images["k1_by_stage"], shapes, "cli_images")
     by_variant = {}
     for st in (list(images["k1_by_stage"].values()) + list(neural_k1.values())
                + list(train_k1.values()) + list(calib_k1.values())
+               + list(robust_k1.values())
                + [v for k1 in serve_k1.values() for v in k1.values()]):
         for v, n in st["kernel_by_variant"].items():
             by_variant[v] = by_variant.get(v, 0) + n
+    for v, n in bench["k1_by_variant"].items():
+        by_variant[v] = by_variant.get(v, 0) + n
     head = shapes[0]
     variants = []
     for v in warp.VARIANTS:
@@ -2539,8 +2669,9 @@ def main() -> int:
         "source": "recon3d_tpu_torch/csrc/warp.cu", "replaces": K1_REPLACES,
         "launches": (images["k1_launches"] + neural["cli"]["k1_launches"]
                      + trained["lightglue"]["k1_launches"]
-                     + calib_k1["calibration"]["kernel"]
-                     + sum(v["kernel"] for k1 in serve_k1.values() for v in k1.values())),
+                     + calib_k1["calibration"]["kernel"] + robust_k1["load"]["kernel"]
+                     + sum(v["kernel"] for k1 in serve_k1.values() for v in k1.values())
+                     + sum(bench["k1_launches"].values())),
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2556,6 +2687,8 @@ def main() -> int:
         "multi_device_run_launches_by_rank": md["b"]["k1_by_rank"],
         "calibration_run_launches": calib_k1,
         "serve_run_launches": serve_k1,
+        "robustness_run_launches": robust_k1,
+        "bench_run_launches": bench["k1_launches"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

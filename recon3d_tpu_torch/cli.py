@@ -105,15 +105,31 @@ def resolve_dataset(dataset: str) -> Path:
     raise SystemExit(f"ERROR: image directory not found: {dataset}")
 
 
-def load_from_colmap(model_dir: str, image_dir: str, cfg, max_images=None,
-                     device="cuda", prescales=()):
-    """Load the images of `image_dir` with the intrinsics of a COLMAP text
-    model (rescaled to the working resolution, pixels undistorted on
-    `device`), map model entries to them by file name, and adopt the
-    model's poses and sparse points. Mirrors recon3d_tpu/cli.py:88-146 with
-    SfMPipeline.load_images (sfm/pipeline.py:372-383).
+def load_from_colmap(pipeline, model_dir: str, image_dir: str, max_images=None):
+    """Seed `pipeline` (an SfMPipeline) from an existing COLMAP text model:
+    load the images with the model's intrinsics (rescaled to the working
+    resolution, pixels undistorted on the pipeline's device), map model
+    entries to them by file name, and adopt the model's poses and sparse
+    points, as recon3d_tpu/cli.py:88-146 does.
 
-    Returns (image_set, points, colors, poses)."""
+    Returns (points, colors, poses)."""
+    iset, points, colors, poses = _load_from_colmap(
+        model_dir, image_dir, pipeline.config, max_images,
+        device=pipeline.device, prescales=pipeline.prescale_hints)
+    pipeline.image_set = iset
+    pipeline.camera = iset.camera
+    pipeline.poses = dict(poses)
+    pipeline.registered = set(poses)
+    pipeline.points3d = points
+    pipeline.point_colors = colors
+    return points, colors, poses
+
+
+def _load_from_colmap(model_dir: str, image_dir: str, cfg, max_images=None,
+                      device="cuda", prescales=()):
+    """load_from_colmap without a pipeline: the CLI's dense-only runs take
+    the image set with the model. Returns (image_set, points, colors,
+    poses)."""
     import torch
 
     from recon3d_tpu_torch.camera import Camera
@@ -247,7 +263,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict,
             print("[colmap] --calibration is superseded by the COLMAP model's "
                   "intrinsics (as in the JAX CLI)")
         with timer.stage("sparse_sfm"):
-            iset, points, colors, poses = load_from_colmap(
+            iset, points, colors, poses = _load_from_colmap(
                 args.from_colmap, str(image_dir), cfg, args.max_images,
                 device=device, prescales=sorted(prescales),
             )

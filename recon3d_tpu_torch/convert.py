@@ -268,10 +268,12 @@ def read_params_npz(path, module: Optional[torch.nn.Module] = None) -> Dict[str,
         return {k: z[k] for k in z.files}
 
 
-def load_params_npz(path, module: torch.nn.Module) -> torch.nn.Module:
-    """Load a checkpoint (a save_params_npz .npz or a public torch .pth)
-    into `module` in place, through flax_to_state_dict: every key of the
-    file consumed, every parameter set."""
-    flat = read_params_npz(path, module)
-    module.load_state_dict(flax_to_state_dict(flat, module), strict=True)
-    return module
+def __getattr__(name: str):
+    # load_params_npz lives in neural/weights.py, at the JAX package's
+    # path; it is re-exported here on first use because weights.py
+    # imports this module.
+    if name == "load_params_npz":
+        from recon3d_tpu_torch.neural.weights import load_params_npz
+
+        return load_params_npz
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

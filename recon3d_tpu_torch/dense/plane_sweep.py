@@ -267,9 +267,13 @@ def _compact_masked(pts: torch.Tensor, mask: torch.Tensor):
     return pts.reshape(-1, 3).index_select(0, idx), idx
 
 
-def fused_points_compact(pts_b: torch.Tensor, mask_b: torch.Tensor):
+def fused_points_compact(pts_b: torch.Tensor, mask_b: torch.Tensor, lo: int = 8192):
     """Compact on the device, download only the selected points. Returns
-    (points (M, 3) float32 numpy, flat_indices (M,) int64 numpy)."""
+    (points (M, 3) float32 numpy, flat_indices (M,) int64 numpy).
+
+    `lo` is accepted and ignored: in the JAX package it is the smallest
+    capacity bucket of the compaction, which XLA needs as a static shape;
+    here the compaction takes exactly the selected points."""
     taken, idx = _compact_masked(pts_b, mask_b)
     return (
         taken.cpu().numpy().astype(np.float32),

@@ -140,7 +140,7 @@ def train(steps: int = 3000, batch: int = 32, hw=(128, 128), lr: float = 1e-3, s
     device = resolve_device(device)
     model = _init_module(SuperPointNet(), seed, init_params, device)
     if init_weights:
-        from recon3d_tpu_torch.convert import load_params_npz
+        from recon3d_tpu_torch.neural.weights import load_params_npz
 
         load_params_npz(init_weights, model)
     sched = warmup_cosine_decay_schedule(

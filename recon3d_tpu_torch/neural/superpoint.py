@@ -4,7 +4,7 @@ PyTorch port of recon3d_tpu/neural/superpoint.py: the published
 architecture (DeTone et al., 2018), a VGG-style shared encoder, a
 65-channel detector head (8x8 cells and a dustbin) and a 256-d descriptor
 head. Layer names are those of the JAX package's checkpoints
-(conv1a ... convDb), so convert.load_params_npz fills them from the
+(conv1a ... convDb), so neural.weights.load_params_npz fills them from the
 bundled .npz. The network runs NCHW inside and takes and returns the JAX
 package's NHWC layout at its boundary.
 

@@ -4,8 +4,9 @@ PyTorch port of recon3d_tpu/neural/weights.py:
 - `save_params_npz(module, path)` writes the JAX package's checkpoint
   format, the flat '/'-keyed Flax parameters stored as float16
   (`params/conv1a/kernel`, `params/layer0/self_attn0/to_q/kernel`, ...),
-  so that the JAX `load_params_npz` reads a network the port trained; the
-  port reads the JAX package's files with convert.load_params_npz.
+  so that the JAX `load_params_npz` reads a network the port trained;
+  `load_params_npz(path, template)` reads the JAX package's files (or a
+  public torch checkpoint) into a module.
 - `load_superpoint_torch` and `load_lightglue_torch` read the public torch
   checkpoints (magicleap SuperPoint, cvg/LightGlue) with the JAX mapping:
   they build the flat Flax parameters, which then go through
@@ -21,7 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from recon3d_tpu_torch.convert import flax_to_state_dict
+from recon3d_tpu_torch.convert import flax_to_state_dict, read_params_npz
 from recon3d_tpu_torch.neural.lightglue import LightGlueNet
 from recon3d_tpu_torch.neural.superpoint import SuperPointNet
 
@@ -84,6 +85,16 @@ def save_params_npz(module: torch.nn.Module, path) -> None:
     out = {k: v.astype(np.float16) if v.dtype == np.float32 else v
            for k, v in state_dict_to_flax(module).items()}
     np.savez_compressed(path, **out)
+
+
+def load_params_npz(path, template: torch.nn.Module) -> torch.nn.Module:
+    """Load a checkpoint (a save_params_npz .npz or a public torch .pth)
+    into the module `template` in place, through flax_to_state_dict: every
+    key of the file consumed, every parameter set. Returns the module, as
+    the JAX function returns the filled parameter tree."""
+    flat = read_params_npz(path, template)
+    template.load_state_dict(flax_to_state_dict(flat, template), strict=True)
+    return template
 
 
 def _nest(flat: Dict[str, np.ndarray]) -> dict:

@@ -29,3 +29,8 @@ def ncc_windowed(ref: torch.Tensor, src: torch.Tensor, ok: torch.Tensor,
     vs = torch.clamp_min(box_filter(src * src * w, patch) / cnt - ms * ms, 1e-8)
     ncc = torch.clamp(cov / torch.sqrt(vr * vs), -1.0, 1.0)
     return torch.where(ok, ncc, -1.0)
+
+
+# The JAX package's name for its XLA entry point, kept for callers that
+# import it by module path.
+ncc_windowed_xla = ncc_windowed

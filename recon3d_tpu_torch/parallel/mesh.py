@@ -431,6 +431,15 @@ def mesh_devices(devices: int, device) -> int:
     return max(devices, 1)
 
 
+def auto_mesh(min_devices: int = 2) -> Optional[Mesh]:
+    """A data-parallel mesh over every visible GPU when there are at least
+    `min_devices`, else None (as the JAX package's on fewer devices)."""
+    n = torch.cuda.device_count()
+    if n < min_devices:
+        return None
+    return make_mesh(MeshConfig(model_parallel=1), devices=n, device="cuda")
+
+
 def data_parallel_mesh(n: int, device) -> Optional[Mesh]:
     """The entry points' mesh: data-parallel over n devices, or None for
     one (no mesh is built and the single-device path runs)."""

@@ -106,6 +106,19 @@ from recon3d_tpu_torch.gui.viewer import render_pointcloud
 assert render_pointcloud(pts, None, (24, 32)).shape == (24, 32, 3)
 from recon3d_tpu_torch.runtime.worker import build_command
 assert build_command("d", {"device": "cpu"})[2] == "recon3d_tpu_torch.cli"
+import importlib.util
+import bench_cuda
+row = bench_cuda.main(["--device", "cpu", "--views", "2", "--windows", "1", "--reps", "1",
+                       "--patch", "5", "--iterations", "1"])
+assert row["value"] > 0 and row["k1_plain"] > 0
+spec = importlib.util.spec_from_file_location("bench_stages_torch", "scripts/bench_stages_torch.py")
+stages = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(stages)
+assert stages.main(["--quick", "--device", "cpu", "--skip", "sift", "match", "sweep",
+                    "patchmatch", "bundle"]) == 0
+from tests.torch_render import render_views
+from tests.torch_robust_check import DIST, tuned_config
+assert render_views(n_views=1, image_size=(24, 32), dist=DIST)["images"].shape == (1, 24, 32, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "recon3d_tpu"
              or m.startswith("recon3d_tpu."))
@@ -134,7 +147,9 @@ def _imports(path: Path):
 
 
 def test_source_scan_finds_no_jax_or_reference_import():
-    files = sorted((REPO / "recon3d_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "recon3d_tpu_torch").rglob("*.py")) + [
+        REPO / f for f in ("chip_smoke.py", "bench_cuda.py", "scripts/bench_stages_torch.py",
+                           "tests/torch_render.py", "tests/torch_robust_check.py")]
     assert len(files) > 30
     offenders = []
     for f in files:
