@@ -21,7 +21,7 @@ which is what bench.py measures up to its host fetch.
 Prints one JSON line, last: {"metric", "value", "unit", "vs_baseline"}
 against bench.py's BASELINE_MP_S, with every window's seconds, the card
 (nvidia-smi's name and power limit) and K1's launches and plain calls in
-the timed windows. Exits non-zero without a GPU unless --device cpu.
+the timed windows, with the launches by shape and by variant. Exits non-zero without a GPU unless --device cpu.
 """
 
 from __future__ import annotations
@@ -128,16 +128,15 @@ def main(argv=None) -> dict:
     if first.shape != (args.views, Hs, Ws) or not bool(torch.isfinite(first).all()):
         raise AssertionError(f"bench_cuda: depth maps of shape {tuple(first.shape)} "
                              "are malformed or not finite")
-    warp.counts.reset()
-    windows_s = []
-    for w in range(args.windows):
-        t0 = time.perf_counter()
-        depths = [run(w * args.reps + r + 1) for r in range(args.reps)]
-        sync()
-        windows_s.append(time.perf_counter() - t0)
-        del depths
-    launches, plain = warp.counts.kernel, warp.counts.plain
-    by_variant = dict(warp.counts.by_variant)
+    windows_s, k1 = [], {}
+    with warp.record_launches(k1, "windows"):
+        for w in range(args.windows):
+            t0 = time.perf_counter()
+            depths = [run(w * args.reps + r + 1) for r in range(args.reps)]
+            sync()
+            windows_s.append(time.perf_counter() - t0)
+            del depths
+    k1 = k1["windows"]
 
     mp_s = Hs * Ws * args.views * args.reps / 1e6 / min(windows_s)
     row = {
@@ -146,7 +145,8 @@ def main(argv=None) -> dict:
         "vs_baseline": mp_s / BASELINE_MP_S,
         "windows_s": windows_s,
         "device": card_line() if dev.type == "cuda" else "cpu",
-        "k1_launches": launches, "k1_plain": plain, "k1_by_variant": by_variant,
+        "k1_launches": k1["kernel"], "k1_plain": k1["plain"],
+        "k1_by_shape": k1["kernel_by_shape"], "k1_by_variant": k1["kernel_by_variant"],
         "views": args.views, "map": [Hs, Ws], "reps": args.reps,
         "iterations": args.iterations, "samples": NUM_SAMPLES, "patch": args.patch,
     }

@@ -6,11 +6,11 @@ Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port, from csrc/, with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     every shape the main paths give it (K1 at the 17 shapes of its seven
+     every shape the main paths give it (K1 at the 25 shapes of its seven
      call sites: PatchMatch, the TSDF lookup, the plane sweep, SuperPoint's
      descriptor sampling in neural SfM and in LightGlue's training,
-     calibration's corner refinement and the undistortion at load), bit
-     for bit
+     calibration's corner refinement and the undistortion at load; the
+     first three also at the shapes of the bench phase), bit for bit
      in every variant its launch planner can pick there, with times (each
      variant, the plain version, one library call as a yardstick) and the
      least time the card could take; the TSDF shape once more with one
@@ -113,8 +113,11 @@ Phases, each of which passes or raises:
      before the load and read just after: one launch at the undistortion
      shape, no plain call;
  22. bench: bench_cuda.main (PatchMatch throughput, 1 window of 4
-     repetitions) and scripts/bench_stages_torch.py --quick, their JSON
-     lines printed, K1 never in its plain version.
+     repetitions) and scripts/bench_stages_torch.py --quick (its other five
+     stages), their JSON lines printed, K1's launches in each (the timed
+     windows of bench_cuda, each stage of the other) only at the kernel
+     phase's shapes, in the variant the planner picks there, and its plain
+     version never.
 
 Every phase's wall time is printed, and their total, before the JSON lines.
 
@@ -321,6 +324,20 @@ K1_SHAPES = [
     # colour planes of its 6 views of 192x256 at the 49,152 forward-distorted
     # pixel positions they share, one launch for the set
     ("load", 18, 192, 256, 192 * 256, "undistort"),
+    # the bench phase. bench_cuda.py: its 16 views x J=3 sources = 48
+    # planes in one batch, at the fields of the 120x160 fine level (9, 5,
+    # 1) and the 30x40 coarse level (13, 9). bench_stages_torch.py --quick:
+    # the sweep's 4 reference views x 5 sources = 20 planes, 8 plane
+    # homographies a chunk at 60x80, then 5 candidate fields at 120x160;
+    # TSDF, one view's depth and confidence planes at all 64^3 voxels
+    ("bench_patchmatch", 48, 120, 160, 9 * 120 * 160, "fields"),
+    ("bench_patchmatch", 48, 120, 160, 5 * 120 * 160, "fields"),
+    ("bench_patchmatch", 48, 120, 160, 1 * 120 * 160, "fields"),
+    ("bench_patchmatch", 48, 30, 40, 13 * 30 * 40, "fields"),
+    ("bench_patchmatch", 48, 30, 40, 9 * 30 * 40, "fields"),
+    ("bench_sweep", 20, 60, 80, 8 * 60 * 80, "fields"),
+    ("bench_sweep", 20, 120, 160, 5 * 120 * 160, "fields"),
+    ("bench_tsdf", 2, 120, 160, 64 ** 3, "voxels"),
 ]
 K1_REPLACES = "recon3d_tpu/ops/warp_pallas.py:98"
 # Floating-point operations of one bilinear sample: 2 floor, 4 fraction
@@ -2500,13 +2517,16 @@ def robustness_phase(work: Path, card: str, shapes: list) -> dict:
     return out
 
 
-def bench_phase(card: str) -> dict:
+def bench_phase(card: str, shapes: list) -> dict:
     """The port's two benchmark scripts in this process: bench_cuda.main at
     1 window of 4 repetitions, the same 4 calls once more under the
     profiler (the device's busy and idle share of the window), and
-    scripts/bench_stages_torch.py --quick. Their JSON lines are printed;
-    each value must be finite and positive and K1's plain version never
-    called."""
+    scripts/bench_stages_torch.py --quick without its patchmatch stage,
+    which would run bench_cuda.main once more at the same settings. Their
+    JSON lines are printed; each value must be finite and positive, and
+    every K1 launch of the timed windows (bench_cuda) and of each stage
+    (warm-up included) at a kernel-phase shape in the planner's variant,
+    the plain version never called."""
     import contextlib
     import importlib.util
     import io
@@ -2525,7 +2545,7 @@ def bench_phase(card: str) -> dict:
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = stages.main(["--quick"])
+        rc = stages.main(["--quick", "--skip", "patchmatch"])
     stages_s = time.perf_counter() - t0
     print(buf.getvalue(), end="", flush=True)
     lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
@@ -2534,26 +2554,28 @@ def bench_phase(card: str) -> dict:
         if not (math.isfinite(r["value"]) and r["value"] > 0):
             failed.append(f"{r['metric']}: {r['value']}")
     metrics = [r["metric"] for r in lines]
-    if metrics != ["sift_extract", "match_verify", "plane_sweep", "patchmatch_mvs",
-                   "bundle_adjust_full", "tsdf_integration"]:
+    if metrics != ["sift_extract", "match_verify", "plane_sweep", "bundle_adjust_full",
+                   "tsdf_integration"]:
         failed.append(f"bench_stages_torch printed {metrics}")
-    pm = next((r for r in lines if r["metric"] == "patchmatch_mvs"), {})
-    launches = {"bench_cuda": row["k1_launches"],
-                "bench_stages_patchmatch": pm.get("k1_launches", 0)}
-    by_variant = {}
-    for r in (row, pm):
-        for v, n in r.get("k1_by_variant", {}).items():
-            by_variant[v] = by_variant.get(v, 0) + n
-    if row["k1_plain"] or pm.get("k1_plain") or not all(launches.values()):
-        failed.append(f"K1 in the benchmarks: {launches}, plain {row['k1_plain']} / "
-                      f"{pm.get('k1_plain')}")
+    names = ["patchmatch"] + [n for n in stages.STAGES if n != "patchmatch"]
+    by_stage = {f"bench_{name}": {"kernel": r["k1_launches"], "plain": r["k1_plain"],
+                                  "kernel_by_shape": r["k1_by_shape"],
+                                  "kernel_by_variant": r["k1_by_variant"]}
+                for name, r in zip(names, [row] + lines)}
+    check_k1_shapes(by_stage, shapes, "bench")
+    idle = [k for k in ("bench_patchmatch", "bench_sweep", "bench_tsdf")
+            if not by_stage.get(k, {}).get("kernel")]
+    if idle:
+        failed.append(f"K1 never launched in {idle}")
     print(f"[bench] on {card}: bench_cuda {row['value']:.4f} {row['unit']} (windows "
           f"{row['windows_s']}), bench_stages_torch --quick {stages_s:.1f} s: "
-          + ", ".join(f"{r['metric']} {r['value']:.4g} {r['unit']}" for r in lines), flush=True)
+          + ", ".join(f"{r['metric']} {r['value']:.4g} {r['unit']}" for r in lines)
+          + "; K1 launches " + ", ".join(f"{k} {v['kernel']}" for k, v in by_stage.items()),
+          flush=True)
     if failed:
         raise AssertionError("bench: " + "; ".join(failed))
     return {"bench_cuda": row, "bench_cuda_profile": profile, "stages": lines,
-            "k1_launches": launches, "k1_by_variant": by_variant}
+            "k1_by_stage": by_stage}
 
 
 def main() -> int:
@@ -2610,44 +2632,43 @@ def main() -> int:
         robust = phase("robustness", robustness_phase, work, card, shapes)
     phase("rescue", rescue_phase, card)
     phase("dense_sift_budget", dense_sift_budget, card)
-    bench = phase("bench", bench_phase, card)
+    bench = phase("bench", bench_phase, card, shapes)
     print("[time] phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # Launches at each shape of the kernel phase: on the main path
     # (cli_images), on the neural path (SuperPoint's shape), on the
     # training path (LightGlue's training shape), in calibration (the
-    # refinement's shape) and at the robustness phase's load (the
-    # undistortion's shape).
+    # refinement's shape), at the robustness phase's load (the
+    # undistortion's shape) and in the bench phase (its scripts' shapes).
     neural_k1 = neural["cli"]["k1_by_stage"]
     train_k1 = trained["lightglue"]["k1"]
     calib_k1 = calib["k1_by_stage"]
     robust_k1 = robust["k1_by_stage"]
+    bench_k1 = bench["k1_by_stage"]
     serve_k1 = {name: served[name]["k1_by_stage"] for name in ("request1", "request2")}
     run_keys = ("launches", "neural_run_launches", "train_run_launches",
-                "calibration_run_launches", "robustness_run_launches")
+                "calibration_run_launches", "robustness_run_launches", "bench_run_launches")
     for sh in shapes:
         for key, by_stage in zip(run_keys, (images["k1_by_stage"], neural_k1, train_k1,
-                                            calib_k1, robust_k1)):
+                                            calib_k1, robust_k1, bench_k1)):
             sh[key] = by_stage.get(sh["stage"], {}).get("kernel_by_shape", {}).get(
                 sh["shape_key"], 0)
     unseen = [sh["shape_key"] for sh in shapes if not any(sh[k] for k in run_keys)]
     if unseen:
         raise AssertionError(f"the main paths never launched K1 at the kernel phase's "
                              f"shapes {unseen}: {images['k1_by_stage']}, {neural_k1}, "
-                             f"{train_k1}, {calib_k1}, {robust_k1}")
+                             f"{train_k1}, {calib_k1}, {robust_k1}, {bench_k1}")
     # every launch at a kernel-phase shape, in the variant the planner
     # picks there (the neural and training runs' were checked in their phases)
     check_k1_shapes(images["k1_by_stage"], shapes, "cli_images")
     by_variant = {}
     for st in (list(images["k1_by_stage"].values()) + list(neural_k1.values())
                + list(train_k1.values()) + list(calib_k1.values())
-               + list(robust_k1.values())
+               + list(robust_k1.values()) + list(bench_k1.values())
                + [v for k1 in serve_k1.values() for v in k1.values()]):
         for v, n in st["kernel_by_variant"].items():
             by_variant[v] = by_variant.get(v, 0) + n
-    for v, n in bench["k1_by_variant"].items():
-        by_variant[v] = by_variant.get(v, 0) + n
     head = shapes[0]
     variants = []
     for v in warp.VARIANTS:
@@ -2671,7 +2692,7 @@ def main() -> int:
                      + trained["lightglue"]["k1_launches"]
                      + calib_k1["calibration"]["kernel"] + robust_k1["load"]["kernel"]
                      + sum(v["kernel"] for k1 in serve_k1.values() for v in k1.values())
-                     + sum(bench["k1_launches"].values())),
+                     + sum(v["kernel"] for v in bench_k1.values())),
         "max_abs_err": max(sh["max_abs_err"] for sh in shapes),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2688,7 +2709,7 @@ def main() -> int:
         "calibration_run_launches": calib_k1,
         "serve_run_launches": serve_k1,
         "robustness_run_launches": robust_k1,
-        "bench_run_launches": bench["k1_launches"],
+        "bench_run_launches": bench_k1,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,7 +8,8 @@ measures every hot stage, so that a change is seen stage by stage.
                     (and on saturated noise)
 - match_verify      the batched matcher with F-RANSAC over all pairs, pairs/s
 - plane_sweep       64-plane sweep of 4 reference views, depth-map MP/s
-- patchmatch_mvs    bench_cuda.py's metric (with --quick: 1 window of 4 reps)
+- patchmatch_mvs    bench_cuda.py's metric (with --quick: 1 window of 4 reps;
+                    on the CPU, bench_cuda.py's tiny CPU size)
 - bundle_adjust_full  full BA, ms an LM iteration
 - tsdf_integration  TSDF fusion of 8 views, million voxel observations/s
 
@@ -17,8 +18,9 @@ Usage: python3 scripts/bench_stages_torch.py [--quick] [--skip STAGE ...]
 
 Prints one JSON line per metric. Every timed call ends at a
 torch.cuda.synchronize() (on the CPU, at its return); a stage's value is
-its best window, after one warm-up call. Exits non-zero without a GPU
-unless --device cpu.
+its best window, after one warm-up call. Each line carries K1's launches
+and plain calls in its stage, warm-up included, with the launches by shape
+and by variant. Exits non-zero without a GPU unless --device cpu.
 """
 
 from __future__ import annotations
@@ -148,13 +150,17 @@ def bench_plane_sweep(dev, quick=False):
 def bench_patchmatch(dev, quick=False):
     import bench_cuda
 
-    argv = ["--device", dev.type] + (["--windows", "1", "--reps", "4"] if quick else [])
+    argv = ["--device", dev.type]
+    if quick and dev.type == "cpu":
+        argv += ["--windows", "1", "--reps", "1", "--views", "2", "--patch", "5",
+                 "--iterations", "1"]
+    elif quick:
+        argv += ["--windows", "1", "--reps", "4"]
     with contextlib.redirect_stdout(io.StringIO()):
         row = bench_cuda.main(argv)
     return {"metric": "patchmatch_mvs", "value": row["value"], "unit": row["unit"],
             "vs_baseline": row["vs_baseline"], "windows_s": row["windows_s"],
-            "reps": row["reps"], "k1_launches": row["k1_launches"],
-            "k1_plain": row["k1_plain"], "k1_by_variant": row["k1_by_variant"]}
+            "views": row["views"], "reps": row["reps"]}
 
 
 def make_problem(nC, nP, obs_per_pt=5, seed=0):
@@ -252,6 +258,7 @@ def main(argv=None) -> int:
         print("bench_stages_torch: no CUDA device visible; pass --device cpu for a CPU run",
               file=sys.stderr)
         return 1
+    from recon3d_tpu_torch.kernels import warp
     from recon3d_tpu_torch.runtime.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -268,7 +275,13 @@ def main(argv=None) -> int:
             continue
         vals = []
         for _ in range(max(1, args.repeat)):
-            row = {**fn(dev, quick=args.quick), "device": where}
+            by_stage = {}
+            with warp.record_launches(by_stage, name):
+                row = fn(dev, quick=args.quick)
+            k1 = by_stage[name]
+            row.update(device=where, k1_launches=k1["kernel"], k1_plain=k1["plain"],
+                       k1_by_shape=k1["kernel_by_shape"],
+                       k1_by_variant=k1["kernel_by_variant"])
             vals.append(row["value"])
             print(json.dumps(row), flush=True)
         if len(vals) > 1:
