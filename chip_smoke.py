@@ -527,11 +527,11 @@ def k1_library_call(planes, coords):
         img, grid, mode="bilinear", padding_mode="border", align_corners=True)
 
 
-def check_k1(planes, coords, what: str, variant=None):
-    """K1 (the planner's variant, or the one named) against its plain
-    version on the card: bit-identical samples and validity, and both valid
-    and invalid points present."""
-    out, valid = warp.tent_warp(planes, coords, variant=variant)
+def check_k1(planes, coords, what: str, variant=None, **launch):
+    """K1 (the planner's variant, or the one named; `launch` forces vec or
+    planes_per_block) against its plain version on the card: bit-identical
+    samples and validity, and both valid and invalid points present."""
+    out, valid = warp.tent_warp(planes, coords, variant=variant, **launch)
     ref, ref_valid = warp.tent_warp_reference(planes, coords)
     torch.cuda.synchronize()
     what = f"{what}, variant {variant or warp.plan_for(planes, coords).variant}"
@@ -560,6 +560,25 @@ def k1_variants(planes, coords, coords_u, what: str) -> dict:
     return out
 
 
+def k1_split(planes, coords, coords_u, what: str) -> dict:
+    """`shared` with its planes split into groups on grid y as the planner
+    splits them, and in one group of all N (PR 11's launch): each held bit
+    for bit to the plain version at every vector width, on the main path's
+    points and on uniform ones; both timed at the planner's width."""
+    N = planes.shape[0]
+    for pts, tag in ((coords, ""), (coords_u, " (uniform)")):
+        for vec in warp.vec_widths(pts.shape[1], pts.data_ptr() % 16):
+            for P in (None, N):
+                check_k1(planes, pts, f"{what}{tag}, vec {vec}, planes a block "
+                         f"{P or 'as planned'}", "shared", vec=vec, planes_per_block=P)
+    plan = warp.plan_for(planes, coords, "shared")
+    return {"planes_per_block": plan.planes_per_block, "grid": list(plan.grid),
+            "vec": plan.vec,
+            "ms": cuda_ms(lambda: warp.tent_warp(planes, coords, variant="shared"), 200),
+            "one_group_ms": cuda_ms(lambda: warp.tent_warp(
+                planes, coords, variant="shared", planes_per_block=N), 200)}
+
+
 def k1_bound(N: int, H: int, W: int, Nc: int, M: int, texels: int) -> dict:
     n_bytes = k1_bytes(N, H, W, Nc, M, texels)
     n_ops = N * M * K1_OPS_PER_SAMPLE
@@ -572,9 +591,10 @@ def k1_bound(N: int, H: int, W: int, Nc: int, M: int, texels: int) -> dict:
 def kernel_phase() -> list:
     """K1 at each shape of K1_SHAPES, on the main path's kind of points and
     on uniform ones, in every variant the planner can pick there; timed on
-    the main path's kind. At the TSDF shape, the same points once more with
-    one plane (N = 1), which shows whether a second plane costs a second
-    read of the coordinates."""
+    the main path's kind. Where `shared` can take the shape, its split of
+    the planes over grid y against one group of all planes (k1_split). At
+    the TSDF shape, the same points once more with one plane (N = 1), which
+    shows whether a second plane costs a second read of the coordinates."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = []
     for stage, N, H, W, M, kind in K1_SHAPES:
@@ -584,6 +604,7 @@ def kernel_phase() -> list:
         coords_u = k1_inputs(1 if shared else N, H, W, M, "uniform", gen)[1]
         plan = warp.plan_for(planes, coords)
         variant_ms = k1_variants(planes, coords, coords_u, what)
+        split = k1_split(planes, coords, coords_u, what) if "shared" in variant_ms else None
         ms_uniform = cuda_ms(lambda: warp.tent_warp(planes, coords_u), 200)
         del coords_u
         err, n_invalid = check_k1(planes, coords, f"{what} ({kind})")
@@ -603,7 +624,7 @@ def kernel_phase() -> list:
             "variant": plan.variant, "plan": vars(plan), "variant_ms": variant_ms,
             "max_abs_err": err, "ms": ms, "issue_ms": issue_ms,
             "ms_uniform_points": ms_uniform,
-            "plain_ms": plain_ms, "library_ms": library_ms, **bound,
+            "plain_ms": plain_ms, "library_ms": library_ms, "shared_split": split, **bound,
         })
         print(f"[kernels] tent_warp on {what}: bit-identical to its plain version in "
               f"every variant ({', '.join(f'{v} {t:.4f}' for v, t in variant_ms.items())} "
@@ -613,6 +634,14 @@ def kernel_phase() -> list:
               f"(K1/grid_sample {ms / library_ms:.2f}), bound {bound['bound_ms']:.4f} "
               f"by {bound['bound_by']} ({100 * bound['bound_ms'] / ms:.0f}% of it)",
               flush=True)
+        if split:
+            print(f"[kernels] tent_warp on {what}, shared: {split['planes_per_block']} "
+                  f"planes a block, grid {tuple(split['grid'])}, vec {split['vec']}: "
+                  f"{split['ms']:.4f} ms; one group of {N}: {split['one_group_ms']:.4f} ms "
+                  f"(split / one group {split['ms'] / split['one_group_ms']:.2f}); "
+                  f"grid_sample {library_ms:.4f} (shared / grid_sample "
+                  f"{split['ms'] / library_ms:.2f}), bound {bound['bound_ms']:.4f}; "
+                  f"bit-identical at every width", flush=True)
         if kind == "voxels":
             one = planes[:1].contiguous()
             n1 = {"ms": cuda_ms(lambda: warp.tent_warp(one, coords), 200),

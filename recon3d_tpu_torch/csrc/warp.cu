@@ -19,19 +19,28 @@
 // served on chip. Three variants, chosen by kernels/warp.py::plan_launch:
 //   `plane`:       own points on a 2-D grid, taps through __ldg from L1/L2;
 //   `shared`:      shared points, taps through __ldg (planes too large for
-//                  shared memory, as undistortion's 480x640 colour planes);
+//                  shared memory: SuperPoint's 256 descriptor planes,
+//                  undistortion's colour planes), on a 2-D grid whose y
+//                  dimension splits the planes into groups;
 //   `shared_smem`: shared points on a persistent grid, one or two blocks
 //                  an SM, each of which copies all N planes into shared
 //                  memory once and takes its taps from there.
 // What each does about the bound:
-//   (a) shared points are loaded once per point, not once per plane: one
-//       thread reads (x, y), computes validity, floor, weights and tap
-//       offsets once and then walks the N planes, writing one sample a
-//       plane and one validity byte. Coordinate traffic is 8 B a point
-//       whatever N is (the TSDF lookup reads 57 MB, not 113).
+//   (a) shared points are loaded once per point and plane group, not once
+//       per plane: one thread reads (x, y), computes validity, floor,
+//       weights and tap offsets once and then takes its group of planes,
+//       writing one sample a plane; one validity byte a point. Coordinate
+//       traffic is 8 B a point and group (the TSDF lookup reads 57 MB, not
+//       113). `shared` splits the N planes into groups of P on blockIdx.y
+//       where the points alone give too few blocks to fill the card
+//       (SuperPoint's 2,048 points make 8 blocks of 256 threads), and
+//       takes a group's planes U at a time, issuing all 4 * U * VEC tap
+//       loads of a batch before any arithmetic or store: a thread that
+//       walked its planes one by one waited a memory round trip a plane.
 //   (b) no 64-bit division: own points run on a 2-D grid (blockIdx.y is
 //       the plane, looping when N exceeds 65,535) with a 32-bit index
-//       inside the plane; shared points need no plane index at all.
+//       inside the plane; shared points take their plane group from
+//       blockIdx.y in the same way.
 //   (c) 16-byte I/O: a thread takes VEC = 4 (or 2) consecutive points,
 //       loads their coordinates as float4, stores each plane's samples as
 //       a float4 (float2) and the validity as one 32-bit (16-bit) word,
@@ -62,6 +71,7 @@ struct Args {
   float* out;
   uint8_t* valid;
   long long n_planes;
+  long long planes_per_block;  // `shared`: planes a group of blockIdx.y
   int M;  // points per coordinate row, below 2^30 (32-bit indices)
   int H;
   int W;
@@ -106,13 +116,8 @@ __device__ __forceinline__ float tap(const float* img, int o) {
   }
 }
 
-template <bool SMEM>
-__device__ __forceinline__ float sample(const float* img, const Taps& t, float fill) {
-  if (!t.ok) return fill;
-  const float v00 = tap<SMEM>(img, t.o00);
-  const float v01 = tap<SMEM>(img, t.o01);
-  const float v10 = tap<SMEM>(img, t.o10);
-  const float v11 = tap<SMEM>(img, t.o11);
+__device__ __forceinline__ float blend(float v00, float v01, float v10, float v11,
+                                      const Taps& t) {
   const float gx = __fsub_rn(1.0f, t.fx);
   const float gy = __fsub_rn(1.0f, t.fy);
   // ((v00*gx)*gy + (v01*fx)*gy) + (v10*gx)*fy) + (v11*fx)*fy, left to right
@@ -122,6 +127,13 @@ __device__ __forceinline__ float sample(const float* img, const Taps& t, float f
   acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v10, gx), t.fy));
   acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v11, t.fx), t.fy));
   return acc;
+}
+
+template <bool SMEM>
+__device__ __forceinline__ float sample(const float* img, const Taps& t, float fill) {
+  if (!t.ok) return fill;
+  return blend(tap<SMEM>(img, t.o00), tap<SMEM>(img, t.o01), tap<SMEM>(img, t.o10),
+               tap<SMEM>(img, t.o11), t);
 }
 
 // VEC consecutive points from coordinate pointer c (VEC = 4 or 2: 16-byte
@@ -160,19 +172,24 @@ __device__ __forceinline__ void store_valid(uint8_t* p, const Taps (&t)[VEC]) {
   }
 }
 
+template <int VEC>
+__device__ __forceinline__ void store_row(float* o, const float (&s)[VEC]) {
+  if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<float4*>(o), make_float4(s[0], s[1], s[2], s[3]));
+  } else if constexpr (VEC == 2) {
+    __stcs(reinterpret_cast<float2*>(o), make_float2(s[0], s[1]));
+  } else {
+    __stcs(o, s[0]);
+  }
+}
+
 template <int VEC, bool SMEM>
 __device__ __forceinline__ void store_samples(float* o, const float* img, const Taps (&t)[VEC],
                                               float fill) {
-  if constexpr (VEC == 4) {
-    __stcs(reinterpret_cast<float4*>(o),
-           make_float4(sample<SMEM>(img, t[0], fill), sample<SMEM>(img, t[1], fill),
-                       sample<SMEM>(img, t[2], fill), sample<SMEM>(img, t[3], fill)));
-  } else if constexpr (VEC == 2) {
-    __stcs(reinterpret_cast<float2*>(o),
-           make_float2(sample<SMEM>(img, t[0], fill), sample<SMEM>(img, t[1], fill)));
-  } else {
-    __stcs(o, sample<SMEM>(img, t[0], fill));
-  }
+  float s[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) s[i] = sample<SMEM>(img, t[i], fill);
+  store_row<VEC>(o, s);
 }
 
 // ---- staging planes into shared memory -------------------------------
@@ -250,47 +267,98 @@ __device__ __forceinline__ uint64_t* bar_after(unsigned char* smem, long long n_
 
 // ---- the kernels -----------------------------------------------------
 
-// Shared points: each thread takes VEC points at a time and walks all N
-// planes with them. SMEM: the grid is persistent and every block holds
-// all N planes in shared memory.
-template <int VEC, bool SMEM>
-__global__ void __launch_bounds__(SMEM ? 1024 : 256) tent_warp_shared(Args a) {
+// Shared points, taps through L1/L2: blockIdx.x and the thread walk the
+// points VEC at a time; blockIdx.y takes the group of planes_per_block
+// consecutive planes of its index (looping past 65,535 groups). A thread
+// takes its group's planes U at a time: all tap loads of a batch first (a
+// batch past the group's end predicated off), then the arithmetic and the
+// stores. Only the blocks of the first group write validity.
+// A batch holds the taps of 8 samples at VEC 1 (U = 8) and of 4 at VEC 2
+// and 4 (U = 2, 1), and VEC 1 and 2 are held to 64 registers: four blocks
+// an SM. The planner takes VEC 2 and 4 only where the points alone fill the
+// card, and there warps in flight hide latency better than taps in flight
+// (U = 8 at VEC 2 took 126 registers, U = 4 at VEC 4 192, and ran 1.8x and
+// 1.6x slower at the TSDF lookup's 7,077,888 points; PERF.md, PR 12).
+template <int VEC>
+__global__ void __launch_bounds__(256, VEC == 4 ? 1 : 4) tent_warp_shared(Args a) {
+  constexpr int U = VEC == 1 ? 8 : VEC == 2 ? 2 : 1;
+  const int HW = a.H * a.W;
+  const int groups = a.M / VEC;
+  const int N = (int)a.n_planes;
+  const int P = (int)a.planes_per_block;
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < groups;
+       g += gridDim.x * blockDim.x) {
+    const int m = g * VEC;
+    Taps t[VEC];
+    load_taps<VEC>(a.coords + 2 * (long long)m, a.H, a.W, t);
+    if (blockIdx.y == 0) store_valid<VEC>(a.valid + m, t);
+    for (int first = blockIdx.y * P; first < N; first += gridDim.y * P) {
+      const int last = min(first + P, N);
+      for (int n = first; n < last; n += U) {
+        float v[U][VEC][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (u < last - n) {
+            const float* img = a.planes + (long long)(n + u) * HW;
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              v[u][i][0] = __ldg(img + t[i].o00);
+              v[u][i][1] = __ldg(img + t[i].o01);
+              v[u][i][2] = __ldg(img + t[i].o10);
+              v[u][i][3] = __ldg(img + t[i].o11);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (u < last - n) {
+            float s[VEC];
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              // an invalid point's offsets are those of (0, 0): read, not used
+              s[i] = t[i].ok ? blend(v[u][i][0], v[u][i][1], v[u][i][2], v[u][i][3], t[i])
+                             : a.fill;
+            }
+            store_row<VEC>(a.out + (long long)(n + u) * a.M + m, s);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Shared points on a persistent grid: every block copies all N planes into
+// shared memory, then each thread takes VEC points at a time and walks the
+// N planes with them.
+template <int VEC>
+__global__ void __launch_bounds__(1024) tent_warp_shared_smem(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int HW = a.H * a.W;
   const int groups = a.M / VEC;
-  const float* img = a.planes;
-  uint64_t* bar = nullptr;
-  bool pending = false;
-  if constexpr (SMEM) {
-    float* s = reinterpret_cast<float*>(smem_raw);
-    bar = bar_after(smem_raw, a.n_planes * HW);
-    mbar_init(bar);
-    pending = stage_begin(s, a.planes, (int)(a.n_planes * HW), bar);
-    img = s;
-  }
+  const float* img = reinterpret_cast<float*>(smem_raw);
+  uint64_t* bar = bar_after(smem_raw, a.n_planes * HW);
+  mbar_init(bar);
+  bool pending = stage_begin(reinterpret_cast<float*>(smem_raw), a.planes,
+                             (int)(a.n_planes * HW), bar);
   const int stride = gridDim.x * blockDim.x;
   for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < groups; g += stride) {
     const long long m = (long long)g * VEC;
     Taps t[VEC];
     load_taps<VEC>(a.coords + 2 * m, a.H, a.W, t);
     store_valid<VEC>(a.valid + m, t);
-    if constexpr (SMEM) {
-      if (pending) {
-        mbar_wait(bar);
-        pending = false;
-      }
+    if (pending) {
+      mbar_wait(bar);
+      pending = false;
     }
     const float* p = img;
     float* o = a.out + m;
     for (long long n = 0; n < a.n_planes; ++n) {
-      store_samples<VEC, SMEM>(o, p, t, a.fill);
+      store_samples<VEC, true>(o, p, t, a.fill);
       p += HW;
       o += a.M;
     }
   }
-  if constexpr (SMEM) {
-    if (pending) mbar_wait(bar);  // no copy may outlive the block
-  }
+  if (pending) mbar_wait(bar);  // no copy may outlive the block
 }
 
 // Own points, taps through L1/L2: blockIdx.y is the plane (looping past
@@ -320,8 +388,10 @@ int launch(const Args& a, unsigned int gx, unsigned int gy, int threads, int sme
   void (*kernel)(Args);
   if constexpr (VARIANT == 0) {
     kernel = tent_warp_plane<VEC>;
+  } else if constexpr (VARIANT == 1) {
+    kernel = tent_warp_shared<VEC>;
   } else {
-    kernel = tent_warp_shared<VEC, VARIANT == 2>;
+    kernel = tent_warp_shared_smem<VEC>;
   }
   // this library's runtime keeps a refused call's error until it is read:
   // clear it, so that the check after the launch reports this launch alone
@@ -338,16 +408,20 @@ int launch(const Args& a, unsigned int gx, unsigned int gy, int threads, int sme
 }  // namespace
 
 // Variants as numbered in kernels/warp.py::VARIANTS.
+// planes_per_block: the planes of a blockIdx.y group (`shared`, whose
+// 32-bit plane indices take N below 2^29; ignored by the other variants).
 extern "C" int tent_warp_launch(int variant, int vec, const void* planes, const void* coords,
                                 void* out, void* valid, long long n_planes, long long M,
                                 int H, int W, float fill, unsigned int grid_x,
                                 unsigned int grid_y, int threads, int smem_bytes,
-                                void* stream) {
+                                long long planes_per_block, void* stream) {
   if ((vec != 1 && vec != 2 && vec != 4) || M <= 0 || M >= (1LL << 30) || M % vec != 0 ||
-      (long long)H * W >= (1LL << 30))
+      (long long)H * W >= (1LL << 30) ||
+      (variant == 1 && (planes_per_block < 1 || planes_per_block > n_planes ||
+                        n_planes >= (1LL << 29))))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)planes, (const float*)coords, (float*)out, (uint8_t*)valid,
-               n_planes, (int)M, H, W, fill};
+               n_planes, planes_per_block, (int)M, H, W, fill};
   cudaStream_t s = (cudaStream_t)stream;
   switch (variant * 8 + vec) {
 #define K1_CASE(V, VEC) \

@@ -14,7 +14,8 @@ plain version on the CPU would differentiate.
 `counts` records how often each of the two ran. `plan_launch`, a pure
 function of the shapes and the coordinate pointer's alignment, picks the
 kernel's variant (own or shared points, taps from L1/L2 or from shared
-memory), its grid, block, vector width and dynamic shared memory.
+memory), its grid, block, vector width, dynamic shared memory and planes
+a block takes.
 
 The kernel is compiled on first use with nvcc into recon3d_tpu_torch/_build
 (a plain C entry point, loaded with ctypes), keyed by a hash of the source
@@ -85,6 +86,8 @@ SMEM_RESERVED_PER_BLOCK = 1024
 # The planner narrows the points a thread takes until a launch has this
 # many threads an SM: below it, small launches are bound by latency, which
 # more threads hide better than wider loads do (PERF.md, K1's variants).
+# `shared` splits its planes into groups on the grid's y dimension until
+# its blocks reach the same count.
 MIN_THREADS_PER_SM = 1024
 
 
@@ -105,6 +108,7 @@ class LaunchPlan:
     block: int
     vec: int
     smem_bytes: int
+    planes_per_block: int  # planes a block takes: 1 (`plane`), a group (`shared`), N
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -137,17 +141,24 @@ def vec_widths(M: int, coords_align: int) -> List[int]:
 @functools.lru_cache(maxsize=256)
 def plan_launch(N: int, H: int, W: int, Nc: int, M: int, coords_align: int,
                 limits: DeviceLimits = H100, variant: Optional[str] = None,
-                vec: Optional[int] = None) -> LaunchPlan:
+                vec: Optional[int] = None,
+                planes_per_block: Optional[int] = None) -> LaunchPlan:
     """K1's launch for planes (N, H, W) sampled at coords (Nc, M, 2) whose
     data pointer is `coords_align` bytes past a 16-byte boundary.
 
     Own points take `plane`: a 2-D grid with the plane on y (at most
     65,535; the kernel loops beyond). Shared points take `shared_smem`
     where all planes fit one block's shared memory: a persistent grid of as
-    many blocks as fit on the SMs at once, each staging the planes once;
-    else `shared`. vec: the widest of `vec_widths` that leaves the launch
-    MIN_THREADS_PER_SM threads an SM, else 1. `variant` and `vec` force one
-    of `variants_for`'s and `vec_widths`'."""
+    many blocks as fit on the SMs at once, each staging all N planes once;
+    else `shared`: the point blocks on x, and groups of P planes on y (at
+    most 65,535; the kernel loops beyond), where P = N * point blocks /
+    (MIN_THREADS_PER_SM threads an SM in blocks of 256), at least 1 and at
+    most N, so that a launch whose points alone make few blocks still
+    fills the card. vec: the widest of `vec_widths` that leaves the launch
+    MIN_THREADS_PER_SM threads an SM, else 1. `variant`, `vec` and
+    `planes_per_block` force one of `variants_for`'s, one of
+    `vec_widths`' and a P from 1 to N (`shared`; the other variants take
+    only their own: 1 for `plane`, N for `shared_smem`)."""
     if N < 1 or M < 1 or H < 1 or W < 1 or Nc not in (1, N):
         raise ValueError(f"K1 plan: planes ({N}, {H}, {W}), coords ({Nc}, {M}, 2)")
     if M >= 2**30 or H * W >= 2**30:
@@ -169,16 +180,26 @@ def plan_launch(N: int, H: int, W: int, Nc: int, M: int, coords_align: int,
         raise ValueError(f"K1 variant {variant!r} cannot take planes ({N}, {H}, {W}) at "
                          f"coords ({Nc}, {M}, 2); it can take {options}")
     threads = THREADS[variant]
-    groups = M // vec
+    blocks = _cdiv(M // vec, threads)
+    if planes_per_block is not None:
+        if not 1 <= planes_per_block <= N:
+            raise ValueError(f"K1 takes 1 to {N} planes a block, not {planes_per_block}")
+        own = {"plane": 1, "shared_smem": N}.get(variant, planes_per_block)
+        if planes_per_block != own:
+            raise ValueError(f"K1's {variant} takes {own} planes a block, not "
+                             f"{planes_per_block}")
     if variant == "plane":
-        return LaunchPlan(variant, (_cdiv(groups, threads), min(N, MAX_GRID_Y)), threads, vec, 0)
+        return LaunchPlan(variant, (blocks, min(N, MAX_GRID_Y)), threads, vec, 0, 1)
     if variant == "shared":
-        return LaunchPlan(variant, (_cdiv(groups, threads), 1), threads, vec, 0)
+        if N >= 2**29:
+            raise ValueError(f"K1's shared indexes its planes with 32 bits (N below 2^29): {N}")
+        P = planes_per_block or min(
+            max(N * blocks // (limits.sms * MIN_THREADS_PER_SM // threads), 1), N)
+        return LaunchPlan(variant, (blocks, min(_cdiv(N, P), MAX_GRID_Y)), threads, vec, 0, P)
     smem = staged_bytes(N * H * W)
     per_sm = max(1, min(MAX_THREADS_PER_SM // threads,
                         limits.smem_sm // (smem + SMEM_RESERVED_PER_BLOCK)))
-    blocks = min(limits.sms * per_sm, _cdiv(groups, threads))
-    return LaunchPlan(variant, (blocks, 1), threads, vec, smem)
+    return LaunchPlan(variant, (min(limits.sms * per_sm, blocks), 1), threads, vec, smem, N)
 
 
 counts = LaunchCounts()
@@ -257,6 +278,7 @@ def _library():
             ctypes.c_uint,       # grid y
             ctypes.c_int,        # threads per block
             ctypes.c_int,        # dynamic shared memory, bytes
+            ctypes.c_longlong,   # planes a block takes (`shared`'s group on grid y)
             ctypes.c_void_p,     # stream
         ]
         lib.tent_warp_device_info.restype = ctypes.c_int
@@ -283,11 +305,11 @@ def device_limits(device: torch.device) -> DeviceLimits:
 
 
 def plan_for(planes: torch.Tensor, coords: torch.Tensor, variant: Optional[str] = None,
-             vec: Optional[int] = None) -> LaunchPlan:
+             vec: Optional[int] = None, planes_per_block: Optional[int] = None) -> LaunchPlan:
     """plan_launch for these CUDA tensors on their device."""
     N, H, W = planes.shape
     return plan_launch(N, H, W, coords.shape[0], coords.shape[1], coords.data_ptr() % 16,
-                       device_limits(planes.device), variant, vec)
+                       device_limits(planes.device), variant, vec, planes_per_block)
 
 
 def _check(planes: torch.Tensor, coords: torch.Tensor) -> None:
@@ -353,17 +375,19 @@ def tent_warp_reference(
 def tent_warp(
     planes: torch.Tensor, coords: torch.Tensor, fill: float = 0.0,
     variant: Optional[str] = None, vec: Optional[int] = None,
+    planes_per_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bilinear samples of N planes: the K1 kernel on CUDA tensors, the plain
     version on CPU tensors. Same arguments and results as
     `tent_warp_reference`. Inputs must be contiguous float32, coords 8-byte
-    aligned. `variant` and `vec` force the kernel's variant and points a
-    thread in place of the planner's choice (`plan_launch`)."""
+    aligned. `variant`, `vec` and `planes_per_block` force the kernel's
+    variant, points a thread and planes a block in place of the planner's
+    choice (`plan_launch`)."""
     _check(planes, coords)
     if planes.device.type == "cpu":
-        if variant is not None or vec is not None:
-            raise ValueError("tent_warp: variant and vec name a CUDA kernel's launch; the "
-                             "CPU runs the plain version")
+        if (variant, vec, planes_per_block) != (None, None, None):
+            raise ValueError("tent_warp: variant, vec and planes_per_block name a CUDA "
+                             "kernel's launch; the CPU runs the plain version")
         counts.plain += 1
         return tent_warp_reference(planes, coords, fill)
     if planes.device.type != "cuda":
@@ -385,13 +409,14 @@ def tent_warp(
     if N * M == 0:
         return out, valid.expand(N, M)
     lib = _library()
-    plan = plan_for(planes, coords, variant, vec)
+    plan = plan_for(planes, coords, variant, vec, planes_per_block)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         rc = lib.tent_warp_launch(
             VARIANTS.index(plan.variant), plan.vec, planes.data_ptr(), coords.data_ptr(),
             out.data_ptr(), valid.data_ptr(), N, M, H, W, float(fill),
-            plan.grid[0], plan.grid[1], plan.block, plan.smem_bytes, stream,
+            plan.grid[0], plan.grid[1], plan.block, plan.smem_bytes, plan.planes_per_block,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"tent_warp kernel launch failed ({plan}): CUDA error {rc}")

@@ -10,8 +10,12 @@ chip_smoke.K1_SHAPES, on the main path's kind of points (chip_smoke.
 k1_inputs): each copy is held bit for bit to its own plain version and
 timed by CUDA events with the queue held full (chip_smoke.cuda_ms); a copy
 with a launch planner (warp.variants_for) is timed in every variant that
-can take the shape, at every vector width (warp.vec_widths), as well;
-grid_sample on the same work is the yardstick.
+can take the shape, at every vector width (warp.vec_widths), as well. A
+copy whose `shared` splits its planes over grid y (LaunchPlan.
+planes_per_block) times `shared` once more in one group of all N planes
+("/P=N") and, at the planner's width, in groups of 1, 2, 3, 4, 6, 8, 12,
+16, 32 and 64 planes (those below N): the evidence for the planner's rule
+for P. grid_sample on the same work is the yardstick.
 Then the TSDF diagnostic: the TSDF shape again with one plane (N = 1) on
 the same 7,077,888 shared points. Prints one JSON line a shape (and writes
 them to --out if given).
@@ -90,7 +94,9 @@ def main() -> int:
                    "ms": cs.cuda_ms(lambda: mod.tent_warp(planes, coords), 200)}
             if hasattr(mod, "variants_for"):
                 plan = mod.plan_for(planes, coords)
-                run["picked"] = f"{plan.variant}/{plan.vec}"
+                split = "planes_per_block" in mod.LaunchPlan.__dataclass_fields__
+                run["picked"] = f"{plan.variant}/{plan.vec}" + (
+                    f"/P={plan.planes_per_block}" if split else "")
                 run["variant_ms"] = {}
                 align = coords.data_ptr() % 16
                 for v in mod.variants_for(N, H, W, Nc):
@@ -98,6 +104,15 @@ def main() -> int:
                         check(mod, planes, coords, f"{what} ({v}, vec {w})", variant=v, vec=w)
                         run["variant_ms"][f"{v}/{w}"] = cs.cuda_ms(
                             lambda: mod.tent_warp(planes, coords, variant=v, vec=w), 200)
+                        if not (split and v == "shared"):
+                            continue
+                        sweep = (1, 2, 3, 4, 6, 8, 12, 16, 32, 64) if (
+                            w == mod.plan_for(planes, coords, v).vec) else ()
+                        for P in [P for P in sweep if P < N] + [N]:
+                            one = {"variant": v, "vec": w, "planes_per_block": P}
+                            check(mod, planes, coords, f"{what} ({v}, vec {w}, P={P})", **one)
+                            run["variant_ms"][f"{v}/{w}/P={P}"] = cs.cuda_ms(
+                                lambda: mod.tent_warp(planes, coords, **one), 200)
             row["runs"].append(run)
         print(json.dumps(row), flush=True)
         rows.append(row)

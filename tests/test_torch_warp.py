@@ -125,6 +125,8 @@ def test_wrapper_counts_plain_calls_on_cpu_and_checks_inputs(rng):
     assert not warp.counts.by_shape and not warp.counts.by_variant
     with pytest.raises(ValueError):  # variants are the kernel's; the CPU has one version
         warp.tent_warp(planes, coords, variant="plane")
+    with pytest.raises(ValueError):
+        warp.tent_warp(planes, coords[:1], planes_per_block=1)
     assert warp.shape_key(planes, coords[:1]) == "2x8x9/1x5"
     with pytest.raises(TypeError):
         warp.tent_warp(planes.double(), coords)

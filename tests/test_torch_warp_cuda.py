@@ -110,7 +110,8 @@ def _case(rng, device, N, H, W, Nc, M, misaligned=False, planes_offset=False):
     return planes, coords
 
 
-# (variant, N, H, W, Nc, M, coordinates misaligned, planes not TMA-aligned)
+# (variant, N, H, W, Nc, M, coordinates misaligned, planes not TMA-aligned
+# [, planes a block forced: `shared`'s groups on grid y])
 VARIANT_CASES = [
     ("plane", 16, 30, 40, 16, 3600, False, False),
     ("shared", 2, 120, 160, 1, 40000, False, False),
@@ -131,6 +132,17 @@ VARIANT_CASES = [
     ("shared", 2, 1, 57, 1, 400, False, False),
     ("shared_smem", 2, 57, 1, 1, 400, False, False),
     ("plane", 70_000, 2, 3, 70_000, 4, False, False),     # planes beyond grid y
+    # `shared` split over grid y: the planner's groups at SuperPoint's and
+    # LightGlue training's shapes (3 and 1 planes at vec 1), 3 planes a
+    # group with a tail group of 1, one group of all N (more than a batch
+    # of U planes), misaligned coordinates under a split, and more groups
+    # than grid y holds
+    ("shared", 256, 60, 80, 1, 2048, False, False),
+    ("shared", 256, 16, 16, 1, 256, False, False),
+    ("shared", 10, 20, 24, 1, 1000, False, False, 3),
+    ("shared", 10, 20, 24, 1, 1000, False, False, 10),
+    ("shared", 10, 20, 24, 1, 1000, True, False, 3),
+    ("shared", 70_000, 2, 3, 1, 4, False, False, 1),
 ]
 
 
@@ -140,9 +152,10 @@ def test_every_variant_is_bit_identical_to_plain(rng, case, cuda_device):
     """Each variant the planner can pick, forced, at every vector width the
     layout allows, against the plain version: the same bits in samples and
     validity, tails, misaligned coordinates, planes that TMA cannot copy or
-    that do not fit, one-pixel-wide planes and more planes than a grid's y
-    dimension holds."""
-    variant, N, H, W, Nc, M, misaligned, planes_offset = case
+    that do not fit, one-pixel-wide planes, more planes than a grid's y
+    dimension holds, and `shared`'s planes split into groups."""
+    variant, N, H, W, Nc, M, misaligned, planes_offset, *forced = case
+    P = forced[0] if forced else None
     planes, coords = _case(rng, cuda_device, N, H, W, Nc, M, misaligned, planes_offset)
     align = coords.data_ptr() % 16
     assert variant in warp.variants_for(N, H, W, Nc, warp.device_limits(cuda_device))
@@ -151,7 +164,8 @@ def test_every_variant_is_bit_identical_to_plain(rng, case, cuda_device):
     assert widths == ([1] if misaligned or M % 2 else [4, 2, 1] if M % 4 == 0 else [2, 1])
     for vec in widths:
         warp.counts.reset()
-        out, valid = warp.tent_warp(planes, coords, fill=-1.0, variant=variant, vec=vec)
+        out, valid = warp.tent_warp(planes, coords, fill=-1.0, variant=variant, vec=vec,
+                                    planes_per_block=P)
         torch.cuda.synchronize()
         assert warp.counts.by_variant == {variant: 1} and warp.counts.plain == 0
         assert torch.equal(valid, vref), vec
@@ -173,9 +187,17 @@ def test_planner_refuses_and_card_refusals_raise(rng, cuda_device):
     lib = warp._library()
     rc = lib.tent_warp_launch(
         warp.VARIANTS.index("shared_smem"), 4, planes.data_ptr(), coords.data_ptr(),
-        out.data_ptr(), valid.data_ptr(), 4, 64, 120, 160, 0.0, 1, 1, 1024, 307_208,
+        out.data_ptr(), valid.data_ptr(), 4, 64, 120, 160, 0.0, 1, 1, 1024, 307_208, 4,
         torch.cuda.current_stream().cuda_stream)
     assert rc != 0
+    for P in (0, 5):  # `shared` takes 1 to N planes a group
+        rc = lib.tent_warp_launch(
+            warp.VARIANTS.index("shared"), 4, planes.data_ptr(), coords.data_ptr(),
+            out.data_ptr(), valid.data_ptr(), 4, 64, 120, 160, 0.0, 1, 1, 256, 0, P,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, P
+    with pytest.raises(ValueError):
+        warp.tent_warp(planes, coords, planes_per_block=5)
     limits = warp.device_limits(cuda_device)
     assert limits.sms > 0 and 0 < limits.smem_block <= limits.smem_sm
 
