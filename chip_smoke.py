@@ -1,10 +1,12 @@
 """Smoke test of the PyTorch/CUDA port (recon3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # 11 to 15 minutes on an H100, by the host
+    python3 chip_smoke.py    # 8 to 12 minutes on an H100, by the host
 
 Phases, each of which passes or raises:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: every CUDA kernel of the port, from csrc/, with nvcc;
+  2. build: every library of the port from its source, all at once: K1
+     (csrc/warp.cu) and K2/K3 (csrc/pointcloud.cu) with nvcc, the host PLY
+     routines (csrc/pointcloud_host.cpp) with g++;
   3. kernels: each kernel against its plain PyTorch version on the card at
      every shape the main paths give it (K1 at the 25 shapes of its seven
      call sites: PatchMatch, the TSDF lookup, the plane sweep, SuperPoint's
@@ -35,12 +37,14 @@ Phases, each of which passes or raises:
      (SFM_SPARSE_GATE), then its back-end stages once more under the
      profiler. Plain PyTorch as well;
   8. cli_images, the main path: the port's CLI `IMAGES --mvs --mesh --stereo
-     --export-colmap` on the same PNGs, K1's counts set to 0 just before and
-     read just after: SfM at SFM_SPARSE_GATE, the dense cloud in the scene's
-     frame at CLI_DENSE_GATE, mesh.ply, dense_stereo.ply and sparse_colmap/
-     checked, K1 launched by PatchMatch, the plane sweep and the TSDF, only
-     at the kernel phase's shapes, in the variant the planner picks there,
-     and its plain version never;
+     --export-colmap` on the same PNGs, K1's, K2's and K3's counts set to 0
+     just before and read just after: SfM at SFM_SPARSE_GATE, the dense
+     cloud in the scene's frame at CLI_DENSE_GATE, mesh.ply,
+     dense_stereo.ply and sparse_colmap/ checked, K1 launched by PatchMatch,
+     the plane sweep and the TSDF, only at the kernel phase's shapes, in the
+     variant the planner picks there, K3 once for the mesh colours, and no
+     plain version ever (every later CLI run checks K2's and K3's plain
+     calls too);
   9. stereo: `--stereo --from-colmap` on the model of the true poses,
      dense_stereo.ply at STEREO_GATE;
  10. the dense stages of the main path once more, each under the profiler
@@ -49,7 +53,15 @@ Phases, each of which passes or raises:
      path exported (the plane sweep and dense SIFT on its SfM cameras),
      dense.ply in the scene's frame at DENSE_SIFT_GATE, with the stage's
      breakdown, match capacity, pair count, peak device memory and the
-     k-NN filter's path (native library or scipy);
+     k-NN filter's time and path: K2 launched once on the card (knn_path
+     "cuda"), no plain call;
+ 11b. pointcloud: K2 against its plain version on dense SIFT's raw cloud
+     (whole, at a cut of K2_CUT points, and that cut at K2_WIDE_K) and on a
+     cloud with a cell no ring fills, bit for bit; K3 (a grid search) on
+     the main path's mesh vertices against its fused cloud, index for
+     index; each timed against its bound, its plain version and (K3)
+     torch.cdist + argmin; the voxel dedup on the card against the plain
+     rule at the fused cloud's size;
  12. checkpoint: `IMAGES --mvs --checkpoint-dir` from scratch, again after
      half the depth maps are deleted, again with none left (the sparse
      state restored, every map recomputed), and once more under --profile
@@ -121,7 +133,7 @@ Phases, each of which passes or raises:
 
 Every phase's wall time is printed, and their total, before the JSON lines.
 
-Prints the kernel table as one JSON line, then the card line, then
+Prints the kernel table (K1, K2, K3) as one JSON line, then the card line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero, printing no
 result, when no CUDA device is visible.
 """
@@ -153,7 +165,7 @@ sys.modules["tests"] = _tests
 from recon3d_tpu_torch.cli import main as cli_main  # noqa: E402
 from recon3d_tpu_torch.io.colmap import load_colmap_text, save_colmap_text  # noqa: E402
 from recon3d_tpu_torch.io.ply import load_mesh_ply, load_ply  # noqa: E402
-from recon3d_tpu_torch.kernels import warp  # noqa: E402
+from recon3d_tpu_torch.kernels import pointcloud, warp  # noqa: E402
 from tests.render import render_views  # noqa: E402
 from tests.torch_scene import (  # noqa: E402
     match_graph_levels, pose_errors, sparse_from_depth, surface_gate, to_scene_frame)
@@ -340,6 +352,23 @@ K1_SHAPES = [
     ("bench_tsdf", 2, 120, 160, 64 ** 3, "voxels"),
 ]
 K1_REPLACES = "recon3d_tpu/ops/warp_pallas.py:98"
+# K2 and K3 have no Pallas kernel behind them: they replace the JAX
+# package's host C++, which the port does not load.
+K2_REPLACES = ("native/pointcloud.cpp:67 knn_mean_dist (the JAX package's host C++; "
+               "no Pallas kernel stands behind it)")
+K3_REPLACES = ("native/pointcloud.cpp:136 nearest_index (the JAX package's host C++; "
+               "no Pallas kernel stands behind it)")
+K2_SOURCE = K3_SOURCE = "recon3d_tpu_torch/csrc/pointcloud.cu"
+# Floating-point operations of one squared distance: 3 differences, 3
+# products, 2 sums (K2 and K3 alike).
+OPS_PER_PAIR = 8
+# Dense SIFT's raw cloud is compared whole against K2's plain version at
+# this cut (a seeded random subset), and at its full size.
+K2_CUT = 20_000
+# K beyond K2's register list: the cut is held once more at this k.
+K2_WIDE_K = 40
+# Queries of one torch.cdist call in K3's library yardstick.
+K3_LIBRARY_CHUNK = 2048
 # Floating-point operations of one bilinear sample: 2 floor, 4 fraction
 # subtractions, 8 products, 3 sums.
 K1_OPS_PER_SAMPLE = 17
@@ -371,6 +400,28 @@ def cuda_ms(fn, iters: int, prefill: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def once_ms(fn):
+    """(milliseconds, result) of one fn() on the card, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def pointcloud_calls(st: dict, what: str) -> dict:
+    """K2's and K3's launches and plain calls in a CLI run (--stats-json);
+    their plain versions are never called on the card."""
+    calls = st["pointcloud_calls"]
+    plain = {name: c["plain"] for name, c in calls.items() if c["plain"]}
+    if plain:
+        raise AssertionError(f"{what}: the plain versions of K2/K3 ran on the card: {plain}")
+    return calls
 
 
 def _special_points(W: int, H: int) -> torch.Tensor:
@@ -738,6 +789,7 @@ def main_path(work: Path, card: str) -> dict:
             f"main path: K1 launched {launches} times, plain version {plain_calls}")
 
     stats = json.loads(stats_path.read_text())
+    pointcloud_calls(stats, "dense from colmap")
     points, colors = load_ply(str(out / "dense_mvs.ply"))
     if colors is None or colors.shape != points.shape:
         raise AssertionError("dense_mvs.ply: colours missing or malformed")
@@ -1136,17 +1188,37 @@ def cli_images(work: Path, scene: dict, card: str) -> dict:
     well-formed mesh.ply and dense_stereo.ply, sparse_colmap/ read back to
     the poses of poses.npz, K1 launched in every dense stage (the TSDF once
     a view) and its plain version never."""
+    from recon3d_tpu_torch.dense import filters, mesh
+
     out, stats_path = work / "cli_images", work / "cli_images.json"
     argv = [str(work / "images"), "--mvs", "--mesh", "--stereo", "--export-colmap",
             "--calibration", str(work / "calibration.npz"), "--output", str(out),
             "--stats-json", str(stats_path), "--device", "cuda"]
-    torch.cuda.synchronize()
-    warp.counts.reset()
-    t0 = time.perf_counter()
-    rc = cli_main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # K3's and the voxel dedup's inputs on this path, for pointcloud_phase
+    captured = {}
+    inner_colors, inner_voxel = mesh.mesh_vertex_colors, filters.voxel_downsample
+
+    def colors(verts, points, cols, device="cuda"):
+        captured["mesh_vertices"], captured["fused_cloud"] = verts.copy(), points.copy()
+        return inner_colors(verts, points, cols, device=device)
+
+    def voxel(points, cols=None, voxel_size=0.02, device="cuda"):
+        captured.setdefault("voxel_input", (np.array(points, np.float32), float(voxel_size)))
+        return inner_voxel(points, cols, voxel_size, device)
+
+    mesh.mesh_vertex_colors, filters.voxel_downsample = colors, voxel
+    try:
+        torch.cuda.synchronize()
+        warp.counts.reset()
+        pointcloud.reset_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mesh.mesh_vertex_colors, filters.voxel_downsample = inner_colors, inner_voxel
     launches, plain_calls = warp.counts.kernel, warp.counts.plain
+    searches = pointcloud.snapshot()
     if rc != 0:
         raise AssertionError(f"cli_images: CLI returned {rc}")
     st = json.loads(stats_path.read_text())
@@ -1182,9 +1254,16 @@ def cli_images(work: Path, scene: dict, card: str) -> dict:
         "stereo_share": stereo_share, "mesh": mesh,
         "colmap_images": len(model.images), "colmap_points": len(model.points),
         "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1,
+        "pointcloud_calls": pointcloud_calls(st, "cli_images"),
+        "k3_launches": searches["nearest_index"]["kernel"],
+        "mesh_vertices": len(captured.get("mesh_vertices", ())),
+        "fused_points": len(captured.get("fused_cloud", ())),
     }
     print(json.dumps(report), flush=True)
     failed = []
+    if searches != st["pointcloud_calls"] or searches["nearest_index"]["kernel"] != 1:
+        failed.append(f"K3 not launched once for the mesh colours: {searches}, "
+                      f"the CLI's {st['pointcloud_calls']}")
     if st["num_cameras"] < SFM_SPARSE_GATE["min_cameras"]:
         failed.append(f"{st['num_cameras']} cameras registered")
     if not st["mean_reproj_px"] < SFM_SPARSE_GATE["mean_reproj_px"]:
@@ -1205,6 +1284,7 @@ def cli_images(work: Path, scene: dict, card: str) -> dict:
         failed.append("the TSDF stage did not launch K1 once a view")
     if failed:
         raise AssertionError("cli_images fails its gate: " + "; ".join(failed))
+    report["captured"] = captured
     return report
 
 
@@ -1228,7 +1308,8 @@ def stereo_run(work: Path, card: str) -> dict:
     k1 = st["k1_calls_by_stage"]
     report = {"phase": "stereo", "card": card, "stage_times_s": st["stage_times_s"],
               "stereo_points": len(points), "median": med, "share": share,
-              "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1}
+              "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1,
+              "pointcloud_calls": pointcloud_calls(st, "stereo")}
     print(json.dumps(report), flush=True)
     if plain_calls != 0 or k1.get("plane_sweep", {}).get("kernel", 0) == 0:
         raise AssertionError(f"stereo run: K1 by stage {k1}, plain calls {plain_calls}")
@@ -1289,16 +1370,18 @@ def dense_profile(work: Path, images: dict) -> dict:
 
 def dense_sift_phase(work: Path, scene: dict, card: str) -> dict:
     """The CLI's `--combined --from-colmap` on the model the main path
-    exported, K1's counts set to 0 just before and read just after:
-    dense.ply in the scene's frame at DENSE_SIFT_GATE, dense_stereo.ply
-    written, the plane sweep's K1 launches; dense SIFT's breakdown and its
-    own peak of allocated device memory."""
+    exported, K1's, K2's and K3's counts set to 0 just before and read just
+    after: dense.ply in the scene's frame at DENSE_SIFT_GATE,
+    dense_stereo.ply written, the plane sweep's K1 launches, the k-NN
+    filter through K2 on the card (knn_path "cuda", launched, no plain
+    call); dense SIFT's breakdown and its own peak of allocated device
+    memory. The filter's raw cloud is kept for pointcloud_phase."""
     from recon3d_tpu_torch.dense import sift_dense
-    from recon3d_tpu_torch.runtime.native import native_available
 
     out, stats_path = work / "dense_sift", work / "dense_sift.json"
-    inner = sift_dense.DenseSiftReconstructor.reconstruct
-    peak = {}
+    inner, inner_filter = (sift_dense.DenseSiftReconstructor.reconstruct,
+                           sift_dense.knn_statistical_filter)
+    peak, captured = {}, {}
 
     def measured(self, *args, **kwargs):
         torch.cuda.synchronize()
@@ -1308,10 +1391,16 @@ def dense_sift_phase(work: Path, scene: dict, card: str) -> dict:
         peak["bytes"] = torch.cuda.max_memory_allocated()
         return result
 
+    def capture(points, colors=None, k=20, **kwargs):
+        captured["raw_cloud"], captured["k"] = points.detach().clone(), k
+        return inner_filter(points, colors, k=k, **kwargs)
+
     sift_dense.DenseSiftReconstructor.reconstruct = measured
+    sift_dense.knn_statistical_filter = capture
     try:
         torch.cuda.synchronize()
         warp.counts.reset()
+        pointcloud.reset_counts()
         t0 = time.perf_counter()
         rc = cli_main([str(work / "images"), "--combined", "--from-colmap",
                        str(work / "cli_images" / "sparse_colmap"), "--output", str(out),
@@ -1320,7 +1409,9 @@ def dense_sift_phase(work: Path, scene: dict, card: str) -> dict:
         wall = time.perf_counter() - t0
     finally:
         sift_dense.DenseSiftReconstructor.reconstruct = inner
+        sift_dense.knn_statistical_filter = inner_filter
     launches, plain_calls = warp.counts.kernel, warp.counts.plain
+    searches = pointcloud.snapshot()
     if rc != 0:
         raise AssertionError(f"dense_sift: CLI returned {rc}")
     st = json.loads(stats_path.read_text())
@@ -1332,19 +1423,158 @@ def dense_sift_phase(work: Path, scene: dict, card: str) -> dict:
                       "dense_sift dense.ply, SfM cameras")
     stereo, _ = load_ply(str(out / "dense_stereo.ply"))
     k1 = st["k1_calls_by_stage"]
+    br = st["dense_sift_breakdown"]
     report = {"phase": "dense_sift", "card": card, "wall_s": wall,
-              "stage_times_s": st["stage_times_s"],
-              "dense_sift_breakdown": st["dense_sift_breakdown"],
-              "peak_bytes": peak.get("bytes"), "native_available": native_available(),
+              "stage_times_s": st["stage_times_s"], "dense_sift_breakdown": br,
+              "peak_bytes": peak.get("bytes"),
               "dense_points": len(dense), "median": med, "share": share,
               "gate": list(DENSE_SIFT_GATE), "stereo_points": len(stereo),
-              "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1}
+              "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1,
+              "pointcloud_calls": pointcloud_calls(st, "dense_sift"),
+              "k2_launches": searches["knn_mean_dist"]["kernel"]}
     print(json.dumps(report), flush=True)
+    print(f"[dense_sift] on {card}: the k-NN filter took {br['filter_s']:.3f} s of the "
+          f"stage's {st['stage_times_s']['dense_sift']:.3f} s on {br['triangulated_points']} "
+          f"triangulated points (path {br['knn_path']}, K2 launches {br['knn_launches']}); "
+          f"K2/K3 launches and plain calls {searches}", flush=True)
     if plain_calls != 0 or k1.get("plane_sweep", {}).get("kernel", 0) == 0:
         raise AssertionError(f"dense_sift: K1 by stage {k1}, plain calls {plain_calls}")
-    if st["dense_sift_breakdown"]["pairs"] != len(sift_dense.dense_pairs(N_VIEWS, 8)):
+    if br["pairs"] != len(sift_dense.dense_pairs(N_VIEWS, 8)):
         raise AssertionError("dense_sift: not every dense pair was matched")
+    if not (br["knn_path"] == "cuda" and br["knn_launches"] == 1
+            and searches == st["pointcloud_calls"]
+            and searches["knn_mean_dist"]["kernel"] == 1
+            and len(captured.get("raw_cloud", ())) == br["triangulated_points"]):
+        raise AssertionError(f"dense_sift: the k-NN filter did not go through K2 once: "
+                             f"{br}, counts {searches}")
+    report["captured"] = captured
     return report
+
+
+def pointcloud_phase(images: dict, dsift: dict, card: str) -> dict:
+    """K2 and K3 on the card against their plain versions at the shapes the
+    paths gave them, timed with CUDA events against their bounds:
+    - K2 on dense SIFT's raw cloud (captured in dense_sift) at its full
+      size, the whole result bit for bit, and at a seeded cut of K2_CUT
+      points; then on a synthetic cloud with a cell whose rings never hold
+      k other points. Its bound: the candidate pairs the ring rule
+      evaluates at OPS_PER_PAIR float32 operations, or its bytes (points
+      read, distances written), whichever takes longer. No single library
+      call computes the ring rule.
+      The cut once more at K2_WIDE_K, past the register list.
+    - K3 on cli_images' mesh vertices against the fused cloud it coloured
+      them from, index for index; bound: its bytes, or the pairs its grid
+      search evaluated (counted by the kernel on its first launch) at
+      OPS_PER_PAIR operations, whichever takes longer; the library
+      yardstick is torch.cdist and argmin (two calls) over chunks of
+      K3_LIBRARY_CHUNK queries, a brute force.
+    - The voxel dedup on the device (torch ops) against the plain rule (the
+      first point of every floor(p / voxel) cell, numpy on the host) at the
+      fused cloud's size, before PatchMatch's dedup in cli_images."""
+    raw, k = dsift["captured"]["raw_cloud"], dsift["captured"]["k"]
+    n = len(raw)
+    out = {}
+
+    def k2_case(points, what, k=k):
+        prep = pointcloud.knn_prepare(points, k)
+        got = pointcloud.knn_launch(prep)
+        plain_ms, want = once_ms(lambda: pointcloud.knn_mean_dist_reference(points, k))
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"K2 on {what}: {bad} of {len(points)} values differ from "
+                                 f"the plain version (max abs {err})")
+        ms = cuda_ms(lambda: pointcloud.knn_launch(prep), 10)
+        pairs = prep.grid.candidate_pairs()
+        t_ops = pairs * OPS_PER_PAIR / F32_OPS_PER_S
+        t_bytes = 16 * len(points) / HBM_BYTES_PER_S   # 12 bytes read, 4 written a point
+        return {"points": len(points), "k": k, "cells": len(prep.grid.key),
+                "rings": torch.bincount(prep.grid.ring).tolist(),
+                "largest_cell": int(prep.grid.count.max()), "pairs": pairs,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None}
+
+    full = k2_case(raw, "dense SIFT's raw cloud")
+    full["wrapper_ms"] = cuda_ms(lambda: pointcloud.knn_mean_dist(raw, k), 3, prefill=False)
+    cut_rows = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:K2_CUT]
+    cut = k2_case(raw[cut_rows.to(raw.device)].contiguous(), f"a cut of {K2_CUT} points")
+    rng = np.random.default_rng(3)
+    lone = np.concatenate([rng.uniform(0, 10, (30_000, 3)),
+                           [[80.0, 80.0, 80.0], [79.5, 80.0, 80.0], [80.0, 79.0, 80.0]]])
+    lone_t = torch.from_numpy(lone.astype(np.float32)).cuda()
+    grid = pointcloud.cell_grid(lone_t, k)
+    if not bool(((grid.ring == pointcloud.RING_MAX) & (grid.cube - 1 < k)).any()):
+        raise AssertionError("K2's synthetic cloud has no cell whose rings miss k")
+    synthetic = k2_case(lone_t, "the synthetic cloud with a lone cell")
+    wide = k2_case(raw[cut_rows.to(raw.device)].contiguous(), f"the cut at k {K2_WIDE_K}",
+                   K2_WIDE_K)
+    out["knn_mean_dist"] = {**full, "cut": cut, "no_ring_reaches_k": synthetic,
+                            "wide_k": wide}
+    print(f"[pointcloud] K2 on dense SIFT's raw cloud ({n} points, k {k}, "
+          f"{full['cells']} cells, the largest {full['largest_cell']} points, rings "
+          f"{full['rings']}): bit-identical to its plain version; {full['ms']:.4f} ms "
+          f"(the wrapper with its glue {full['wrapper_ms']:.4f}), plain "
+          f"{full['plain_ms']:.4f}, bound {full['bound_ms']:.4f} by {full['bound_by']} "
+          f"({full['pairs']} pairs; {100 * full['bound_ms'] / full['ms']:.1f}% of it); at a "
+          f"cut of {K2_CUT}: {cut['ms']:.4f} ms, plain {cut['plain_ms']:.4f}, bound "
+          f"{cut['bound_ms']:.4f}; a cloud with a lone cell ({synthetic['points']} points): "
+          f"{synthetic['ms']:.4f} ms, bit-identical; the cut at k {K2_WIDE_K} (the "
+          f"scratch list): {wide['ms']:.4f} ms, bit-identical", flush=True)
+
+    cap = images["captured"]
+    ref = torch.from_numpy(cap["fused_cloud"]).cuda()
+    query = torch.from_numpy(cap["mesh_vertices"]).cuda()
+    prep = pointcloud.nearest_prepare(ref, query)
+    pairs = torch.zeros(1, dtype=torch.int64, device=ref.device)
+    got = pointcloud.nearest_launch(prep, pairs)
+    plain_ms, want = once_ms(lambda: pointcloud.nearest_index_reference(ref, query))
+    if not torch.equal(got, want):
+        raise AssertionError(f"K3 on the mesh vertices: {int((got != want).sum())} of "
+                             f"{len(query)} indices differ from the plain version")
+    ms = cuda_ms(lambda: pointcloud.nearest_launch(prep), 10)
+    wrapper_ms = cuda_ms(lambda: pointcloud.nearest_index(ref, query), 3, prefill=False)
+
+    def library():
+        return [torch.cdist(query[i:i + K3_LIBRARY_CHUNK], ref).argmin(1)
+                for i in range(0, len(query), K3_LIBRARY_CHUNK)]
+
+    library_ms = cuda_ms(library, 2)
+    agree = float((torch.cat(library()) == got).float().mean())
+    pairs = int(pairs)
+    t_ops = pairs * OPS_PER_PAIR / F32_OPS_PER_S
+    t_bytes = (12 * (len(ref) + len(query)) + 8 * len(query)) / HBM_BYTES_PER_S
+    out["nearest_index"] = {
+        "ref_points": len(ref), "queries": len(query), "grid": list(prep.span),
+        "pairs": pairs, "brute_force_pairs": len(ref) * len(query), "max_abs_err": 0.0,
+        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_calls": "torch.cdist + argmin, chunks of %d queries" % K3_LIBRARY_CHUNK,
+        "library_agree": agree, "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    k3 = out["nearest_index"]
+    print(f"[pointcloud] K3 on cli_images' {len(query)} mesh vertices against its "
+          f"{len(ref)} fused points (a grid of {prep.span} cells): index for index its plain "
+          f"version; {ms:.4f} ms (the wrapper with its glue {wrapper_ms:.4f}), plain "
+          f"{plain_ms:.4f}, cdist + argmin {library_ms:.4f} (same index {agree:.6f}), "
+          f"{pairs} pairs evaluated ({pairs / len(query):.1f} a query), bound "
+          f"{k3['bound_ms']:.4f} by {k3['bound_by']} ({100 * k3['bound_ms'] / ms:.1f}% of it)",
+          flush=True)
+
+    pts, voxel = cap["voxel_input"]
+    dev_ms, kept = once_ms(lambda: pointcloud.voxel_first_indices(
+        torch.from_numpy(pts).cuda(), voxel))
+    cells = np.floor(pts * (np.float32(1) / np.float32(voxel))).astype(np.int64)
+    want = np.sort(np.unique(cells, axis=0, return_index=True)[1])
+    if not np.array_equal(kept.cpu().numpy(), want):
+        raise AssertionError(f"the voxel dedup on the card keeps {len(kept)} points, the "
+                             f"plain rule {len(want)}")
+    out["voxel_dedup"] = {"points": len(pts), "voxel": voxel, "kept": len(want), "ms": dev_ms}
+    print(f"[pointcloud] voxel dedup on the card at the fused cloud's {len(pts)} points "
+          f"(voxel {voxel}): the plain rule's {len(want)} indices; {dev_ms:.4f} ms",
+          flush=True)
+    print(json.dumps({"phase": "pointcloud", "card": card, **out}), flush=True)
+    return out
 
 
 def checkpoint_phase(work: Path, card: str) -> dict:
@@ -1381,6 +1611,7 @@ def checkpoint_phase(work: Path, card: str) -> dict:
                       "maps_on_disk_before": n_maps_before,
                       "k1_launches": warp.counts.kernel, "k1_plain_calls": warp.counts.plain,
                       "k1_by_shape": k1["kernel_by_shape"],
+                      "pointcloud_calls": pointcloud_calls(st, f"checkpoint {name}"),
                       "dense_points": st["num_dense_points"]}
         print(f"[checkpoint] {name}: wall {wall:.3f} s, stages (s) "
               + ", ".join(f"{k} {v:.3f}" for k, v in st["stage_times_s"].items())
@@ -1626,7 +1857,8 @@ def cli_sparse_run(work: Path, scene: dict, card: str, name: str, flags) -> dict
                                                   "init_time", "incremental_time",
                                                   "final_ba_time") if k in st},
             "dense_points": len(dense), "dense_median": med, "dense_share": share,
-            "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1}
+            "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1,
+            "pointcloud_calls": pointcloud_calls(st, name)}
 
 
 def global_sfm_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
@@ -2383,7 +2615,8 @@ def serve_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
             return {"wall_s": wall, "num_cameras": st["num_cameras"],
                     "mean_reproj_px": st["mean_reproj_px"], "pose_errors": errs,
                     "dense_points": len(dense), "dense_median": med, "dense_share": share,
-                    "stage_times_s": st["stage_times_s"], "k1_by_stage": k1}
+                    "stage_times_s": st["stage_times_s"], "k1_by_stage": k1,
+                    "pointcloud_calls": pointcloud_calls(st, f"serve {name}")}
 
         out["request1"] = submit("serve_r1")
         out["request2"] = submit("serve_r2")
@@ -2562,6 +2795,7 @@ def bench_phase(card: str, shapes: list) -> dict:
 
     import bench_cuda
 
+    pointcloud.reset_counts()
     row = bench_cuda.main(["--windows", "1", "--reps", "4"])
     run = bench_cuda.make_run(bench_cuda.V, bench_cuda.PATCH, bench_cuda.NUM_ITERATIONS,
                               torch.device("cuda"))
@@ -2576,6 +2810,7 @@ def bench_phase(card: str, shapes: list) -> dict:
     with contextlib.redirect_stdout(buf):
         rc = stages.main(["--quick", "--skip", "patchmatch"])
     stages_s = time.perf_counter() - t0
+    searches = pointcloud.snapshot()
     print(buf.getvalue(), end="", flush=True)
     lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
     failed = [] if rc == 0 else [f"bench_stages_torch exited {rc}"]
@@ -2596,15 +2831,17 @@ def bench_phase(card: str, shapes: list) -> dict:
             if not by_stage.get(k, {}).get("kernel")]
     if idle:
         failed.append(f"K1 never launched in {idle}")
+    if any(c["plain"] for c in searches.values()):
+        failed.append(f"the plain versions of K2/K3 ran: {searches}")
     print(f"[bench] on {card}: bench_cuda {row['value']:.4f} {row['unit']} (windows "
           f"{row['windows_s']}), bench_stages_torch --quick {stages_s:.1f} s: "
           + ", ".join(f"{r['metric']} {r['value']:.4g} {r['unit']}" for r in lines)
-          + "; K1 launches " + ", ".join(f"{k} {v['kernel']}" for k, v in by_stage.items()),
-          flush=True)
+          + "; K1 launches " + ", ".join(f"{k} {v['kernel']}" for k, v in by_stage.items())
+          + f"; K2/K3 launches and plain calls {searches}", flush=True)
     if failed:
         raise AssertionError("bench: " + "; ".join(failed))
     return {"bench_cuda": row, "bench_cuda_profile": profile, "stages": lines,
-            "k1_by_stage": by_stage}
+            "k1_by_stage": by_stage, "pointcloud_calls": searches}
 
 
 def main() -> int:
@@ -2620,12 +2857,23 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
-    lib_path, build_s, log = warp.build()
-    print(f"[build] {lib_path.name}: {build_s:.2f} s with nvcc"
-          + (" (already built)" if build_s == 0.0 else ""), flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    # every kernel's library at once, one compiler each (and the host C++)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from recon3d_tpu_torch.runtime import native
+
+    t_build = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        builds = [(name, pool.submit(fn)) for name, fn in (
+            ("nvcc", warp.build), ("nvcc", pointcloud.build), ("g++", native.build))]
+        for tool, future in builds:
+            lib_path, build_s, log = future.result()
+            print(f"[build] {lib_path.name}: {build_s:.2f} s with {tool}"
+                  + (" (already built)" if build_s == 0.0 else ""), flush=True)
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[build] {line.strip()}")
+    print(f"[build] all libraries in {time.perf_counter() - t_build:.2f} s", flush=True)
 
     phase_s = {}
 
@@ -2651,6 +2899,8 @@ def main() -> int:
         stereo = phase("stereo", stereo_run, work, card)
         phase("dense_profile", dense_profile, work, images)
         dsift = phase("dense_sift", dense_sift_phase, work, scene, card)
+        searches = phase("pointcloud", pointcloud_phase, images, dsift, card)
+        del images["captured"], dsift["captured"]
         ckpt = phase("checkpoint", checkpoint_phase, work, card)
         gsfm = phase("global_sfm", global_sfm_phase, work, scene, card, shapes)
         neural = phase("neural", neural_phase, work, scene, card, shapes)
@@ -2740,6 +2990,28 @@ def main() -> int:
         "robustness_run_launches": robust_k1,
         "bench_run_launches": bench_k1,
     }]
+    # K2 and K3: launches on the paths that run them (dense SIFT's filter,
+    # the main path's mesh colours), none on the others', no plain call
+    later = {"stereo": stereo["pointcloud_calls"],
+             "checkpoint": {name: r["pointcloud_calls"] for name, r in ckpt["runs"].items()},
+             "global_sfm": gsfm["cli"]["pointcloud_calls"],
+             "neural": neural["cli"]["pointcloud_calls"],
+             "serve": {name: served[name]["pointcloud_calls"]
+                       for name in ("request1", "request2")},
+             "bench": bench["pointcloud_calls"]}
+    for name, source, launches, key in (
+            ("knn_mean_dist", K2_SOURCE, dsift["k2_launches"], "dense_sift"),
+            ("nearest_index", K3_SOURCE, images["k3_launches"], "cli_images")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": K2_REPLACES if name == "knn_mean_dist" else K3_REPLACES,
+            "launches": launches, "launches_on": key,
+            **{f: searches[name][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+            "measured": searches[name],
+            "dense_sift_run_calls": dsift["pointcloud_calls"][name],
+            "cli_images_run_calls": images["pointcloud_calls"][name],
+            "other_runs_calls": later})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

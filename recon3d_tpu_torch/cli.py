@@ -180,6 +180,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from recon3d_tpu_torch.kernels import pointcloud
     from recon3d_tpu_torch.parallel.mesh import data_parallel_mesh, mesh_devices
     from recon3d_tpu_torch.runtime.device import resolve_device
     from recon3d_tpu_torch.runtime.profiling import StageTimer, maybe_trace
@@ -202,6 +203,7 @@ def main(argv=None) -> int:
 
     timer = StageTimer()
     k1_calls = {}
+    searches = pointcloud.snapshot()
     n_dev = mesh_devices(args.devices, device)
     mesh = data_parallel_mesh(n_dev, device)
     try:
@@ -216,6 +218,8 @@ def main(argv=None) -> int:
         stats["stage_times_s"] = timer.as_dict()
         stats["num_sparse_points"] = int(len(points))
         stats["k1_calls_by_stage"] = k1_calls
+        # K2's and K3's launches and plain calls in this run
+        stats["pointcloud_calls"] = pointcloud.since(searches)
         stats["device"] = (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu")
         stats["devices"] = n_dev
@@ -402,7 +406,7 @@ def _run(args, device, image_dir: Path, output_dir: Path, timer, k1_calls: dict,
                 )
             t_mesh = time.perf_counter()
             mv, mf = extract_mesh(vol)
-            mc = mesh_vertex_colors(mv, dp, dc)
+            mc = mesh_vertex_colors(mv, dp, dc, device=device)
             tsdf_s["extract_mesh_s"] = time.perf_counter() - t_mesh
         stats["tsdf_breakdown_s"] = tsdf_s
         stats["mesh_vertices"], stats["mesh_faces"] = int(len(mv)), int(len(mf))

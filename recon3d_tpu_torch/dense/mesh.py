@@ -1,12 +1,13 @@
 """Triangle-mesh extraction from a TSDF volume: marching tetrahedra.
 
 Copy of recon3d_tpu/dense/mesh.py (host numpy) for the PyTorch port, over
-the port's TSDFVolume (dense/tsdf.py) and its native nearest-neighbour
-lookup (runtime/native.py). Marching tetrahedra instead of marching cubes:
-splitting each cube into 6 Kuhn tetrahedra leaves only 16 sign cases with
-closed-form triangulations (1 or 2 triangles), with no 256-entry case
-table. Vectorized over an active-cube prefilter (sign change and observed
-weight), so cost scales with the surface, not the volume.
+the port's TSDFVolume (dense/tsdf.py), with the vertex colours from K3,
+the exact nearest-neighbour kernel (kernels/pointcloud.py). Marching
+tetrahedra instead of marching cubes: splitting each cube into 6 Kuhn
+tetrahedra leaves only 16 sign cases with closed-form triangulations (1
+or 2 triangles), with no 256-entry case table. Vectorized over an
+active-cube prefilter (sign change and observed weight), so cost scales
+with the surface, not the volume.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Tuple
 import numpy as np
 
 from recon3d_tpu_torch.dense.tsdf import TSDFVolume
+from recon3d_tpu_torch.runtime.native import native_nearest_index
 
 # Kuhn decomposition: 6 tetrahedra per cube, each walking (0,0,0) ->
 # (1,1,1) one axis at a time (one tet per axis permutation). Shared faces
@@ -206,25 +208,11 @@ def mesh_vertex_colors(
     verts: np.ndarray,
     points: np.ndarray,
     colors: np.ndarray,
+    device="cuda",
 ) -> np.ndarray:
-    """Color mesh vertices from the nearest fused cloud point. Exact
-    grid-hash NN in the native C++ runtime (native/pointcloud.cpp
-    nearest_index — both counts reach millions on real scenes); chunked
-    numpy brute force when the library is unavailable."""
+    """Color mesh vertices from the nearest fused cloud point: exact
+    nearest neighbours through K3 (kernels/pointcloud.py; both counts reach
+    millions on real scenes), the lowest index among equal distances."""
     if len(points) == 0 or len(verts) == 0:
         return np.full((len(verts), 3), 180, np.uint8)
-
-    from recon3d_tpu_torch.runtime.native import native_nearest_index
-
-    idx = native_nearest_index(verts, points)
-    if idx is not None:
-        return colors[idx]
-
-    out = np.empty((len(verts), 3), np.uint8)
-    step = max(1, 2_000_000 // max(len(points), 1))
-    for i in range(0, len(verts), step):
-        d = np.linalg.norm(
-            verts[i : i + step, None, :] - points[None, :, :], axis=-1
-        )
-        out[i : i + step] = colors[np.argmin(d, axis=1)]
-    return out
+    return colors[native_nearest_index(verts, points, device=device)]

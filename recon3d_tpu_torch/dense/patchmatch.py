@@ -663,7 +663,7 @@ class PatchMatchMVS:
             )
 
             points, colors = radius_outlier_filter(points, colors)
-            points, colors = voxel_downsample(points, colors, cfg.voxel_size)
+            points, colors = voxel_downsample(points, colors, cfg.voxel_size, device=dev)
         t_filter = time.time() - t0 - t_prep - t_depth - t_fuse
         self.stats = {
             "prep": t_prep, "depth": t_depth, "fuse": t_fuse,

@@ -434,7 +434,7 @@ class PlaneSweepReconstructor:
         from recon3d_tpu_torch.dense.filters import radius_outlier_filter, voxel_downsample
 
         points, colors = radius_outlier_filter(points, colors)
-        points, colors = voxel_downsample(points, colors, cfg.voxel_size)
+        points, colors = voxel_downsample(points, colors, cfg.voxel_size, device=dev)
         print(f"[plane-sweep] {len(points)} points from {len(ref_ids)} ref views "
               f"({time.time() - t0:.1f}s)")
         if return_maps:

@@ -14,7 +14,10 @@ What changes against the JAX version:
     so a test can hand it the JAX package's matches;
   - pairs are triangulated together at one padded capacity (the JAX
     function pads each pair to its own power of 2 and jits one call per
-    pair), and the points stay on the device until one pull at the end;
+    pair), and the points stay on the device through the k-NN filter (K2)
+    and the voxel dedup until one pull at the end; `stats["knn_path"]` is
+    the route K2's counters show ran ("cuda", "plain", or "none" where the
+    cloud held k points or fewer) and `stats["knn_launches"]` its launches;
   - on the card the number of pairs a match chunk holds comes from the
     free device memory (`pair_chunk`): at the profile's 65,536 keypoints a
     view, the JAX chunk of 64 pairs needs about 200 GB. The chunks draw
@@ -39,9 +42,9 @@ from recon3d_tpu_torch.features.frontend import (
     match_capacity,
     match_pairs_batched,
 )
+from recon3d_tpu_torch.kernels import pointcloud
 from recon3d_tpu_torch.ops.triangulate import triangulate_dlt, validate_triangulation
 from recon3d_tpu_torch.runtime.device import resolve_device
-from recon3d_tpu_torch.runtime.native import native_available
 
 # Device bytes a pair of a match chunk holds per (RANSAC hypothesis,
 # keypoint slot) at its peak: the Sampson residuals of every hypothesis with
@@ -178,25 +181,31 @@ class DenseSiftReconstructor:
                 max_reproj_px=cfg.max_reproj_error_px,
                 min_parallax_deg=cfg.min_parallax_deg,
             ))
-        points = np.zeros((0, 3), np.float32)
+        points = torch.zeros((0, 3), dtype=torch.float32, device=dev)
         colors = np.zeros((0, 3), np.uint8)
         if kept:
-            X = torch.cat(xs).cpu().numpy()  # the one pull of the stage
-            keep = X[..., 0] != np.inf
-            points = X[keep].astype(np.float32)
+            X = torch.cat(xs)
+            keep = X[..., 0] != torch.inf
+            points = X[keep]
             cols = np.stack([_keypoint_colors(images[ids[r[0]]], x1[k])
                              for k, r in enumerate(kept)])
-            colors = (cols[keep] * 255).clip(0, 255).astype(np.uint8)
+            colors = (cols[keep.cpu().numpy()] * 255).clip(0, 255).astype(np.uint8)
         t1 = time.perf_counter()
         n_raw = len(points)
-        if len(points):
+        before = pointcloud.snapshot()
+        if n_raw:
+            # on the device: K2's distances, then the voxel dedup
             points, colors = knn_statistical_filter(
                 points, colors, k=cfg.knn_k, std_factor=cfg.knn_std_factor
             )
             points, colors = bbox_voxel_downsample(points, colors)
+        points = points.cpu().numpy()  # the one pull of the points
+        knn = pointcloud.since(before)["knn_mean_dist"]
         self.stats.update(triangulate_s=t1 - t0, filter_s=time.perf_counter() - t1,
                           triangulated_pairs=len(kept), triangulated_points=n_raw,
-                          knn_path="native" if native_available() else "scipy")
+                          knn_path=("cuda" if knn["kernel"] else "plain" if knn["plain"]
+                                    else "none"),
+                          knn_launches=knn["kernel"])
         return points, colors
 
     def reconstruct(

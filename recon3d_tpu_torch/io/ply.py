@@ -2,8 +2,9 @@
 
 PyTorch port of recon3d_tpu/io/ply.py: `save_ply`, `load_ply` and
 `save_cameras_ply`, and the triangle-mesh writer and reader of the TSDF
-stage (`save_mesh_ply`, `load_mesh_ply`), copied (numpy only, with the
-optional native C++ ASCII fast path of runtime/native.py).
+stage (`save_mesh_ply`, `load_mesh_ply`), copied (numpy, with the ASCII
+vertex rows written and parsed by the port's own host C++ library,
+runtime/native.py, built at first use with g++).
 """
 
 from __future__ import annotations
@@ -80,16 +81,8 @@ def save_ply(
             f.write(header)
         from recon3d_tpu_torch.runtime.native import native_ply_write_ascii
 
-        if n and native_ply_write_ascii(path, points, colors):
-            return
-        with open(path, "a") as f:
-            cols = np.concatenate([points.astype(np.float64), colors.astype(np.int64)], axis=1)
-            lines = [
-                "%.6f %.6f %.6f %d %d %d" % tuple(row) for row in cols
-            ]
-            f.write("\n".join(lines))
-            if n:
-                f.write("\n")
+        if n:
+            native_ply_write_ascii(path, points, colors)
 
 
 def save_cameras_ply(path: str, poses, scale: float = 0.5) -> None:
@@ -159,7 +152,7 @@ def load_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
             from recon3d_tpu_torch.runtime.native import native_ply_parse_ascii
 
             data = native_ply_parse_ascii(path, offset, n, len(props))
-            if data is None:
+            if data is None:  # fewer well-formed rows than the header says
                 data = np.loadtxt(f, dtype=np.float64, max_rows=n, ndmin=2)
             if data.size == 0:
                 return np.zeros((0, 3), np.float32), None

@@ -27,11 +27,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 from collections import Counter
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -39,9 +35,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "warp.cu"
-BUILD_DIR = _PKG / "_build"
+from recon3d_tpu_torch.kernels.build import build_library, find_tool
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "warp.cu"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -219,41 +215,15 @@ def record_launches(by_stage: dict, name: str):
                       "kernel_by_variant": dict(counts.by_variant - v0)}
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); K1 cannot be built")
+def nvcc() -> str:
+    return find_tool("nvcc", os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                          "bin", "nvcc"))
 
 
 def build() -> Tuple[Path, float, str]:
     """Compile csrc/warp.cu into a shared library unless an identical build
     exists. Returns (library path, seconds spent compiling, nvcc's log)."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libwarp_{digest}.so"
-    log_path = lib_path.with_suffix(".log")
-    if lib_path.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        return lib_path, 0.0, log
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    log_path.write_text(log)
-    os.replace(tmp, lib_path)
-    return lib_path, seconds, log
+    return build_library(SOURCE, "warp", nvcc(), NVCC_FLAGS)
 
 
 def _library():

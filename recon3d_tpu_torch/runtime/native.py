@@ -1,184 +1,125 @@
-"""ctypes loader for the native C++ host runtime (librecon3d_native.so).
+"""The port's native point-cloud runtime, at the JAX package's names
+(recon3d_tpu/runtime/native.py).
 
-PyTorch port: a verbatim copy of recon3d_tpu/runtime/native.py. It loads the
-same shared library from the repository's native/ directory.
+The JAX package loads a host C++ library built elsewhere
+(native/librecon3d_native.so). The port never opens it. Its counterparts:
+- the searches run on the device: `native_knn_mean_dist` through K2 and
+  `native_nearest_index` through K3 (kernels/pointcloud.py, CUDA kernels
+  on a GPU, their plain versions on the CPU), `native_voxel_downsample`
+  as torch ops on the device;
+- the ASCII PLY routines are the port's own copy in csrc/pointcloud_host.cpp,
+  compiled at first use with the host's `g++ -O3 -std=c++17 -fPIC -shared`
+  into recon3d_tpu_torch/_build and loaded from there.
 
-The reference delegates host-side point-cloud work to compiled libraries
-(scipy cKDTree dense.py:261, sklearn dense_stereo.py:446, OpenCV C++
-everywhere). This framework's equivalents live in native/ (C++17, built
-with `make -C native`): grid-hash voxel downsampling, k-NN mean distances,
-and binary PLY encode/decode. Every entry point has a pure-numpy fallback
-in the callers, so the framework works without the .so.
+Each function takes numpy and gives numpy, as the JAX one does, with an
+added `device=` (the card unless the caller asks for the CPU) where it
+computes. Where the JAX function returns None for a missing library, this
+one raises: a failed build or launch is an error.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-from typing import Optional
+from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from recon3d_tpu_torch.kernels import pointcloud
+from recon3d_tpu_torch.kernels.build import build_library, find_tool
+from recon3d_tpu_torch.runtime.device import resolve_device
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pointcloud_host.cpp"
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _LIB = None
-_TRIED = False
+
+
+def build() -> Tuple[Path, float, str]:
+    """Compile csrc/pointcloud_host.cpp with g++ unless an identical build
+    exists. Returns (library path, seconds spent compiling, g++'s log)."""
+    return build_library(SOURCE, "pointcloud_host", find_tool("g++"), CXX_FLAGS)
 
 
 def _load():
-    global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for cand in (
-        os.path.join(here, "..", "native", "librecon3d_native.so"),
-        os.path.join(here, "native", "librecon3d_native.so"),
-    ):
-        cand = os.path.abspath(cand)
-        if os.path.exists(cand):
-            try:
-                lib = ctypes.CDLL(cand)
-            except OSError:
-                continue
-            lib.voxel_downsample.restype = ctypes.c_longlong
-            lib.voxel_downsample.argtypes = [
-                ctypes.POINTER(ctypes.c_float),  # points
-                ctypes.c_longlong,               # n
-                ctypes.c_float,                  # voxel size
-                ctypes.POINTER(ctypes.c_longlong),  # out indices
-            ]
-            lib.knn_mean_dist.restype = ctypes.c_int
-            lib.knn_mean_dist.argtypes = [
-                ctypes.POINTER(ctypes.c_float),
-                ctypes.c_longlong,
-                ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float),
-            ]
-            try:
-                lib.nearest_index.restype = ctypes.c_int
-                lib.nearest_index.argtypes = [
-                    ctypes.POINTER(ctypes.c_float),     # ref
-                    ctypes.c_longlong,                  # n
-                    ctypes.POINTER(ctypes.c_float),     # query
-                    ctypes.c_longlong,                  # m
-                    ctypes.POINTER(ctypes.c_longlong),  # out indices
-                ]
-            except AttributeError:
-                pass  # older .so without nearest_index
-            try:
-                lib.ply_write_ascii_rows.restype = ctypes.c_int
-                lib.ply_write_ascii_rows.argtypes = [
-                    ctypes.c_char_p,
-                    ctypes.POINTER(ctypes.c_float),
-                    ctypes.POINTER(ctypes.c_ubyte),
-                    ctypes.c_longlong,
-                ]
-                lib.ply_parse_ascii_rows.restype = ctypes.c_longlong
-                lib.ply_parse_ascii_rows.argtypes = [
-                    ctypes.c_char_p,
-                    ctypes.c_longlong,
-                    ctypes.c_longlong,
-                    ctypes.c_int,
-                    ctypes.POINTER(ctypes.c_double),
-                ]
-            except AttributeError:
-                pass  # older .so without the PLY entry points
-            _LIB = lib
-            break
+    global _LIB
+    if _LIB is None:
+        path, _, _ = build()
+        lib = ctypes.CDLL(str(path))
+        lib.ply_write_ascii_rows.restype = ctypes.c_int
+        lib.ply_write_ascii_rows.argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_ubyte),
+            ctypes.c_longlong,
+        ]
+        lib.ply_parse_ascii_rows.restype = ctypes.c_longlong
+        lib.ply_parse_ascii_rows.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_longlong,
+            ctypes.c_longlong,
+            ctypes.c_int,
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        _LIB = lib
     return _LIB
 
 
 def native_available() -> bool:
-    return _load() is not None
-
-
-def native_voxel_downsample(points: np.ndarray, voxel: float) -> Optional[np.ndarray]:
-    """Returns sorted kept indices, or None if the library is unavailable."""
-    lib = _load()
-    if lib is None or len(points) == 0:
-        return None
-    pts = np.ascontiguousarray(points, np.float32)
-    out = np.empty(len(pts), np.int64)
-    n = lib.voxel_downsample(
-        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        ctypes.c_longlong(len(pts)),
-        ctypes.c_float(voxel),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
-    )
-    if n < 0:
-        return None
-    return np.sort(out[:n])
-
-
-def native_knn_mean_dist(points: np.ndarray, k: int) -> Optional[np.ndarray]:
-    """Mean distance to the k nearest neighbors per point, or None."""
-    lib = _load()
-    if lib is None or len(points) == 0:
-        return None
-    pts = np.ascontiguousarray(points, np.float32)
-    out = np.empty(len(pts), np.float32)
-    rc = lib.knn_mean_dist(
-        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        ctypes.c_longlong(len(pts)),
-        ctypes.c_int(k),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-    )
-    if rc != 0:
-        return None
-    return out
-
-
-def native_nearest_index(
-    query: np.ndarray, ref: np.ndarray
-) -> Optional[np.ndarray]:
-    """Index of the nearest `ref` point for every `query` point (exact,
-    grid-hash shells), or None if the library lacks the entry point."""
-    lib = _load()
-    if lib is None or len(ref) == 0 or len(query) == 0:
-        return None
-    if not hasattr(lib, "nearest_index"):
-        return None
-    r = np.ascontiguousarray(ref, np.float32)
-    q = np.ascontiguousarray(query, np.float32)
-    out = np.empty(len(q), np.int64)
-    rc = lib.nearest_index(
-        r.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        ctypes.c_longlong(len(r)),
-        q.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        ctypes.c_longlong(len(q)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
-    )
-    if rc != 0:
-        return None
-    return out
-
-
-def native_ply_write_ascii(
-    path: str, points: np.ndarray, colors: np.ndarray
-) -> bool:
-    """Append ASCII vertex rows to `path` (header already written)."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "ply_write_ascii_rows"):
+    """Whether the port's host library builds and loads here."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
         return False
+    return True
+
+
+def _points(points: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(resolve_device(device))
+
+
+def native_voxel_downsample(points: np.ndarray, voxel: float,
+                            device="cuda") -> Optional[np.ndarray]:
+    """Sorted indices of the first point of every occupied voxel."""
+    return pointcloud.voxel_first_indices(_points(points, device), voxel).cpu().numpy()
+
+
+def native_knn_mean_dist(points: np.ndarray, k: int, device="cuda") -> Optional[np.ndarray]:
+    """Mean distance to the k nearest neighbours per point, under the JAX
+    native search's ring rule (K2)."""
+    return pointcloud.knn_mean_dist(_points(points, device), k).cpu().numpy()
+
+
+def native_nearest_index(query: np.ndarray, ref: np.ndarray,
+                         device="cuda") -> Optional[np.ndarray]:
+    """Index of the nearest `ref` point for every `query` point (exact; the
+    lowest index among equal squared distances; K3)."""
+    return pointcloud.nearest_index(_points(ref, device), _points(query, device)).cpu().numpy()
+
+
+def native_ply_write_ascii(path: str, points: np.ndarray, colors: np.ndarray) -> bool:
+    """Append ASCII vertex rows to `path` (header already written). Returns
+    True; raises OSError when the file cannot be written."""
     pts = np.ascontiguousarray(points, np.float32)
     cols = np.ascontiguousarray(colors, np.uint8)
-    rc = lib.ply_write_ascii_rows(
+    rc = _load().ply_write_ascii_rows(
         path.encode(),
         pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         cols.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
         ctypes.c_longlong(len(pts)),
     )
-    return rc == 0
+    if rc != 0:
+        raise OSError(f"writing the PLY rows of {path} failed")
+    return True
 
 
-def native_ply_parse_ascii(
-    path: str, offset: int, n: int, n_props: int
-) -> Optional[np.ndarray]:
-    """Parse n ASCII vertex rows of n_props numbers -> (n, n_props) float64."""
-    lib = _load()
-    if lib is None or not hasattr(lib, "ply_parse_ascii_rows"):
-        return None
+def native_ply_parse_ascii(path: str, offset: int, n: int,
+                           n_props: int) -> Optional[np.ndarray]:
+    """Parse n ASCII vertex rows of n_props numbers -> (n, n_props) float64,
+    or None when the file holds fewer well-formed rows (as the JAX one)."""
     out = np.empty((n, n_props), np.float64)
-    got = lib.ply_parse_ascii_rows(
+    got = _load().ply_parse_ascii_rows(
         path.encode(),
         ctypes.c_longlong(offset),
         ctypes.c_longlong(n),

@@ -351,7 +351,9 @@ def test_cli_dense_sift_matches_jax_cli(colmap_scene, jax_combined, flag, tmp_pa
     dense, _ = load_ply(str(out / "dense.ply"))
     assert s["num_dense_sift_points"] == len(dense)
     st = s["dense_sift_breakdown"]
-    assert st["pairs"] == 15 and st["capacity"] >= 256 and st["knn_path"] in ("native", "scipy")
+    assert st["pairs"] == 15 and st["capacity"] >= 256 and st["knn_path"] == "plain"
+    assert st["knn_launches"] == 0 and st["triangulated_points"] >= len(dense)
+    assert s["pointcloud_calls"]["knn_mean_dist"] == {"kernel": 0, "plain": 1}
     if flag == "--combined":
         assert s["k1_calls_by_stage"]["plane_sweep"]["plain"] > 0
 

@@ -12,7 +12,6 @@ from scipy.spatial import cKDTree
 
 import recon3d_tpu.features.frontend as jax_frontend
 import recon3d_tpu.runtime.native as jax_native
-import recon3d_tpu_torch.runtime.native as torch_native
 from recon3d_tpu.camera import Camera as JaxCamera
 from recon3d_tpu.config import DenseSiftConfig as JaxDenseSiftConfig
 from recon3d_tpu.dense import filters as jax_filters
@@ -45,9 +44,9 @@ def test_dense_pairs_match_jax():
     assert len(sift_dense.dense_pairs(16, 8)) == 120
 
 
-def _cloud():
+def _cloud(seed: int = 11):
     """A float32 cloud on two planes with scattered outliers."""
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     a = np.c_[rng.uniform(-1, 1, (3000, 2)), rng.normal(0, 0.005, 3000)]
     b = np.c_[rng.uniform(-1, 1, 2000), rng.normal(0.5, 0.005, 2000), rng.uniform(0, 1, 2000)]
     out = rng.uniform(-3, 3, (150, 3))
@@ -55,32 +54,56 @@ def _cloud():
     return pts, rng.integers(0, 256, (len(pts), 3)).astype(np.uint8)
 
 
-@pytest.mark.parametrize("path", ["native", "scipy"])
+# The JAX filter's scipy path takes the exact k-NN (cKDTree), which the
+# port does not: a point can change sides only where the ring rule's mean
+# distance and the exact one straddle their thresholds. On this cloud none
+# does (0 of 5,150 points differ, for both (k, factor) pairs); the bound
+# below, 0.1% of the cloud, is what the test allows. Its voxel dedup hashes
+# the cells and keeps one point a hash, so colliding cells merge: it keeps
+# a subset of the port's points (15 fewer of 5,077 at 1,200 divisions, 16
+# of 229 at 30).
+SCIPY_PATH_DIFFER = 0.001
+
+
+def _rows(points, colors):
+    return {tuple(r) for r in np.c_[points, colors]}
+
+
+@pytest.mark.parametrize("path", ["native", "native_second_cloud", "scipy"])
 def test_filters_keep_the_jax_points(path, monkeypatch):
     """The same float32 cloud gives the same kept points and colours, in
-    order, through the native k-NN and through scipy's cKDTree."""
+    order, through the port's filters (K2's plain version and the voxel
+    dedup on the CPU) and the JAX filters' native path, on two seeded
+    clouds; against the JAX scipy path (cKDTree and the hashed voxel
+    dedup) the points kept differ by at most SCIPY_PATH_DIFFER."""
     if path == "scipy":
         monkeypatch.setattr(jax_native, "native_knn_mean_dist", lambda *a: None)
-        monkeypatch.setattr(torch_native, "native_knn_mean_dist", lambda *a: None)
         monkeypatch.setattr(jax_native, "native_voxel_downsample", lambda *a: None)
-        monkeypatch.setattr(torch_native, "native_voxel_downsample", lambda *a: None)
-    elif not torch_native.native_available():
-        pytest.skip("the native library is not built")
-    pts, cols = _cloud()
+    pts, cols = _cloud(12 if path == "native_second_cloud" else 11)
     for k, f in ((20, 2.5), (8, 1.0)):
         kj, cj = jax_filters.knn_statistical_filter(pts, cols, k=k, std_factor=f)
-        kt, ct = filters.knn_statistical_filter(pts, cols, k=k, std_factor=f)
+        kt, ct = filters.knn_statistical_filter(pts, cols, k=k, std_factor=f, device="cpu")
+        assert 0 < len(kt) < len(pts)
+        if path == "scipy":
+            assert len(_rows(kt, ct) ^ _rows(kj, cj)) <= SCIPY_PATH_DIFFER * len(pts)
+            continue
         np.testing.assert_array_equal(kt, kj)
         np.testing.assert_array_equal(ct, cj)
-        assert 0 < len(kt) < len(pts)
     for div in (1200, 30):
         vj, wj = jax_filters.bbox_voxel_downsample(pts, cols, divisions=div)
-        vt, wt = filters.bbox_voxel_downsample(pts, cols, divisions=div)
+        vt, wt = filters.bbox_voxel_downsample(pts, cols, divisions=div, device="cpu")
+        if path == "scipy":
+            assert _rows(vj, wj) < _rows(vt, wt)
+            continue
         np.testing.assert_array_equal(vt, vj)
         np.testing.assert_array_equal(wt, wj)
-    assert len(filters.bbox_voxel_downsample(pts, cols, divisions=30)[0]) < len(pts)
+    assert len(filters.bbox_voxel_downsample(pts, cols, divisions=30, device="cpu")[0]) < len(pts)
     small = pts[:10]
     assert filters.knn_statistical_filter(small, None, k=20)[0] is small
+    # a tensor stays on its device and keeps its kind
+    kt, ct = filters.knn_statistical_filter(torch.from_numpy(pts), cols)
+    np.testing.assert_array_equal(kt.numpy(), filters.knn_statistical_filter(
+        pts, cols, device="cpu")[0])
 
 
 def test_triangulate_pair_matches_jax(scene):
@@ -176,7 +199,8 @@ def test_reconstruct_passes_the_jax_gates(scene):
     assert med < 0.05, f"median surf dist {med:.3f}"
     st = rec.stats
     assert st["pairs"] == 6 and st["capacity"] == 256 and st["pair_chunk"] == 64
-    assert st["knn_path"] in ("native", "scipy")
+    assert st["knn_path"] == "plain" and st["knn_launches"] == 0
+    assert st["triangulated_points"] >= len(points)
     for k in ("extract_s", "match_s", "triangulate_s", "filter_s", "total_s"):
         assert st[k] >= 0.0
     assert rec.reconstruct(scene["images"], {0: scene["poses"][0]})[0].shape == (0, 3)

@@ -1,4 +1,6 @@
-"""The PyTorch port stands alone: it never imports jax or the JAX package."""
+"""The PyTorch port stands alone: it never imports jax or the JAX package,
+and loads no shared object of the repo but its own builds in
+recon3d_tpu_torch/_build (never native/librecon3d_native.so)."""
 
 import ast
 import os
@@ -45,7 +47,16 @@ from recon3d_tpu_torch.runtime.checkpoint import StageCheckpointer
 from recon3d_tpu_torch.runtime.profiling import maybe_trace
 assert len(dense_pairs(50, 8)) == 400
 pts = np.random.default_rng(0).random((200, 3)).astype(np.float32)
-assert 0 < len(bbox_voxel_downsample(*knn_statistical_filter(pts, None))[0]) <= 200
+assert 0 < len(bbox_voxel_downsample(*knn_statistical_filter(pts, None, device="cpu"),
+                                      device="cpu")[0]) <= 200
+from recon3d_tpu_torch.dense.mesh import mesh_vertex_colors
+from recon3d_tpu_torch.io.ply import load_ply, save_ply
+cols = (pts * 255).astype(np.uint8)
+assert mesh_vertex_colors(pts[:7], pts, cols, device="cpu").shape == (7, 3)
+with tempfile.TemporaryDirectory() as tmp:
+    save_ply(tmp + "/c.ply", pts, cols)
+    back, back_cols = load_ply(tmp + "/c.ply")
+    assert back.shape == pts.shape and np.array_equal(back_cols, cols)
 with tempfile.TemporaryDirectory() as tmp:
     StageCheckpointer(tmp).save_depth(0, d[0], d[0])
     with maybe_trace(tmp, "cpu"):
@@ -124,6 +135,26 @@ bad = sorted(m for m in sys.modules
              or m.startswith("recon3d_tpu."))
 print("BAD", bad)
 assert not bad, bad
+# every shared object mapped into this process: none of the repo's but the
+# port's own builds, the rest from the Python installation or the system
+import os, site, sysconfig
+repo = os.path.realpath(os.getcwd())
+build = os.path.join(repo, "recon3d_tpu_torch", "_build") + os.sep
+installs = {os.path.realpath(p) + os.sep for p in
+            [sys.prefix, sys.base_prefix, sysconfig.get_paths()["purelib"],
+             sysconfig.get_paths()["platlib"], *site.getsitepackages(),
+             site.getusersitepackages(), os.path.dirname(torch.__file__),
+             "/lib", "/lib64", "/usr/lib", "/usr/lib64", "/usr/local/lib"]}
+with open("/proc/self/maps") as f:
+    mapped = {line.split()[-1] for line in f if ".so" in line.split()[-1]}
+ours = sorted(m for m in mapped if os.path.realpath(m).startswith(build))
+stray = sorted(m for m in mapped if os.path.realpath(m) not in ours and (
+    os.path.realpath(m).startswith(repo + os.sep)
+    or not any(os.path.realpath(m).startswith(p) for p in installs)))
+print("OURS", ours)
+print("STRAY", stray)
+assert not any("librecon3d_native" in m for m in mapped), mapped
+assert any("libpointcloud_host_" in m for m in ours), ours
 """
 
 
@@ -134,6 +165,7 @@ def test_port_runs_without_importing_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "BAD []" in r.stdout
+    assert "STRAY []" in r.stdout, r.stdout[-3000:]
 
 
 def _imports(path: Path):

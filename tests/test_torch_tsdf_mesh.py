@@ -104,7 +104,7 @@ def test_extract_mesh_matches_jax_exactly():
         np.testing.assert_array_equal(f_t, f_j)
     pts = np.random.default_rng(3).normal(size=(500, 3)).astype(np.float32)
     cols = np.random.default_rng(4).integers(0, 256, (500, 3)).astype(np.uint8)
-    np.testing.assert_array_equal(tmesh.mesh_vertex_colors(v_t, pts, cols),
+    np.testing.assert_array_equal(tmesh.mesh_vertex_colors(v_t, pts, cols, device="cpu"),
                                   jmesh.mesh_vertex_colors(v_j, pts, cols))
 
 
