@@ -158,7 +158,8 @@ def test_nearest_index_matches_jax_native(branch, n_ref):
 def test_nearest_grid_table():
     """K3's glue on the CPU: the native search's cell size (at least diag /
     256, so at most 258 cells an axis), every reference point in the run of
-    its cell floor(p * inv) - origin, and the original indices a permutation."""
+    its cell floor(p * inv) - origin, the original indices a permutation,
+    and the queries with the order the kernel takes them in."""
     rng = np.random.default_rng(13)
     ref = np.concatenate([rng.normal(size=(3000, 3)), [[40.0, -40.0, 9.0]]]).astype(np.float32)
     prep = pointcloud.nearest_prepare(torch.from_numpy(ref), torch.from_numpy(ref[:5]))
@@ -173,7 +174,12 @@ def test_nearest_grid_table():
     pos = np.arange(len(ref))
     assert ((first[lin.astype(np.int64)] <= pos) & (pos < first[lin.astype(np.int64) + 1])).all()
     assert (np.diff(first) >= 0).all() and first[-1] == len(ref)
-    np.testing.assert_array_equal(prep.query4[:, :3].numpy(), ref[:5])
+    # the queries in the callers' order, query_id the order the kernel
+    # takes them in; the reference points' original indices also in their
+    # w bits
+    np.testing.assert_array_equal(prep.query.numpy(), ref[:5])
+    assert sorted(prep.query_id.tolist()) == list(range(5))
+    np.testing.assert_array_equal(prep.ref4[:, 3].view(torch.int32).numpy(), ids.numpy())
 
 
 def test_mesh_vertex_colors_through_k3():

@@ -6,15 +6,30 @@ skips without a GPU. The file imports neither jax nor the JAX package:
     python -m pytest --noconftest tests/test_torch_pointcloud_cuda.py
 
 Both kernels round every operation as the plain versions do, so they are
-held bit for bit (K2) and index for index (K3).
+held bit for bit (K2) and index for index (K3), K2 also on the clouds made
+to break its skip (tests/torch_clouds.py) and K3 on queries sorted,
+shuffled, tied, beyond the grid and in a neighbourhood too large to stage.
 """
+
+import sys
+import time
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from recon3d_tpu_torch.dense import filters
-from recon3d_tpu_torch.kernels import pointcloud
+# An installed package named `tests` would win over this directory, which
+# holds no __init__.py: bind the name to it first.
+_HERE = str(Path(__file__).resolve().parent)
+if _HERE not in [str(Path(p).resolve()) for p in getattr(sys.modules.get("tests"), "__path__", [])]:
+    sys.modules["tests"] = types.ModuleType("tests")
+    sys.modules["tests"].__path__ = [_HERE]
+
+from recon3d_tpu_torch.dense import filters  # noqa: E402
+from recon3d_tpu_torch.kernels import pointcloud  # noqa: E402
+from tests.torch_clouds import adversarial_clouds, clustered_cloud  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -24,15 +39,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (K2 and K3 are CUDA kernels with no CPU mode)")
     return torch.device("cuda")
-
-
-def clustered_cloud(seed: int, n: int) -> np.ndarray:
-    """Six normal clusters of growing spread and 1% uniform outliers."""
-    rng = np.random.default_rng(seed)
-    centres = rng.normal(0, 1, (6, 3))
-    parts = [centres[i] + rng.normal(0, 0.05 + 0.05 * i, (n // 6, 3)) for i in range(6)]
-    parts.append(rng.uniform(-5, 5, (n // 100, 3)))
-    return np.concatenate(parts).astype(np.float32)
 
 
 def _clouds():
@@ -60,6 +66,32 @@ def test_knn_mean_dist_kernel_equals_plain(cuda_device, case, k):
     assert pointcloud.since(before)["knn_mean_dist"] == {"kernel": 1, "plain": 0}
     want = pointcloud.knn_mean_dist_reference(pts, k)
     assert torch.equal(got, want), (got - want).abs().max()
+
+
+ADVERSARIAL = adversarial_clouds(scale=4)
+
+
+@pytest.mark.parametrize("case", sorted(ADVERSARIAL) + ["one_cell"])
+@pytest.mark.parametrize("k", [8, 20, 31, 40])
+def test_knn_skip_is_exact(cuda_device, case, k):
+    """The skip on clouds made to break it (tests/torch_clouds.py), and one
+    dense cell whose points share one sub-cell, so that every chunk's box
+    is the cell's and nothing can be skipped: bit for bit the plain
+    version; the pairs the kernel evaluated at most the ring rule's, all of
+    them in the dense cell, fewer on the surface."""
+    cloud = ADVERSARIAL[case] if case in ADVERSARIAL else _clouds()[case]
+    pts = torch.from_numpy(cloud).to(cuda_device)
+    prep = pointcloud.knn_prepare(pts, k)
+    pairs = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    got = pointcloud.knn_launch(prep, pairs)
+    want = pointcloud.knn_mean_dist_reference(pts, k)
+    assert torch.equal(got, want), (got - want).abs().max()
+    ring = prep.grid.candidate_pairs()
+    assert 0 < int(pairs) <= ring
+    if case == "one_cell":
+        assert int(pairs) == ring
+    if case == "surface":
+        assert int(pairs) * 2 < ring, (int(pairs), ring)
 
 
 def test_knn_mean_dist_small_and_wide(cuda_device):
@@ -101,7 +133,23 @@ def _nearest_cases():
     cases["outlier"] = (spread.astype(np.float32), rng.normal(size=(3000, 3)).astype(np.float32))
     cases["identical"] = (np.full((300, 3), 0.5, np.float32),
                           rng.normal(size=(50, 3)).astype(np.float32))
+    # the same queries given in the order K3's glue sorts them, and shuffled
+    ref = np.concatenate([ADVERSARIAL["surface"], rng.normal(size=(200, 3))]).astype(np.float32)
+    query = (ADVERSARIAL["surface"][::3] + rng.normal(0, 0.01, (len(ADVERSARIAL["surface"][::3]), 3))
+             ).astype(np.float32)
+    prep = pointcloud.nearest_prepare(torch.from_numpy(ref), torch.from_numpy(query))
+    cases["surface_sorted"] = (ref, query[prep.query_id.numpy()])
+    cases["surface_shuffled"] = (ref, query[rng.permutation(len(query))])
+    # thousands of reference points in a few cells: a block's neighbourhood
+    # overflows its stage and it walks from shell 0
+    dense = np.concatenate([rng.normal(0, 1e-3, (20_000, 3)), rng.uniform(-1, 1, (500, 3))])
+    cases["stage_overflow"] = (dense.astype(np.float32),
+                               rng.normal(0, 2e-3, (3000, 3)).astype(np.float32))
     return cases
+
+
+# csrc: NN_STAGE, the reference points a block stages
+NN_STAGE = 2048
 
 
 @pytest.mark.parametrize("case", sorted(_nearest_cases()))
@@ -113,6 +161,44 @@ def test_nearest_index_kernel_equals_plain(cuda_device, case):
     torch.cuda.synchronize()
     assert pointcloud.since(before)["nearest_index"] == {"kernel": 1, "plain": 0}
     assert torch.equal(got, pointcloud.nearest_index_reference(r, q))
+    pairs = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    prep = pointcloud.nearest_prepare(r, q)
+    assert torch.equal(pointcloud.nearest_launch(prep, pairs), got)
+    assert int(pairs) >= len(query)   # no query stops before it sees a point
+    if case == "stage_overflow":   # one cell holds more than a stage
+        assert int(prep.cell_first.diff().max()) > NN_STAGE
+
+
+def test_nearest_index_far_beyond_the_grid(cuda_device):
+    """Queries 10^5 cells and more outside a grid whose neighbourhood no
+    stage holds (their one block spans the grid, 200,000 uniform points):
+    every one walks from its gap, shell by shell, each shell clipped to
+    the grid. Index for index the plain version's, in far less
+    than the time an unclipped shell (its r^2 columns) would take."""
+    rng = np.random.default_rng(11)
+    ref = rng.uniform(0, 1, (200_000, 3)).astype(np.float32)
+    inside = rng.uniform(0, 1, (40, 2))
+    query = np.concatenate([
+        np.column_stack([np.full(40, 3000.0), inside]),                 # beyond +x
+        np.column_stack([np.full(40, -2500.0), np.full(40, -2500.0),    # beyond a corner
+                         inside[:, 0] + 2500.0]),
+        np.column_stack([inside[:, 0], np.full(40, 1e4), inside[:, 1]]),   # beyond +y
+    ]).astype(np.float32)
+    r, q = (torch.from_numpy(a).to(cuda_device) for a in (ref, query))
+    pointcloud.nearest_index(r[:100], q[:3])   # the build and first use, not timed
+    prep = pointcloud.nearest_prepare(r, q)
+    cells = np.floor(np.abs(query).max(1) * float(prep.inv))
+    assert cells.min() > 1e5 and cells.max() < 2.0 ** 28   # the walk, not the full scan
+    # one block, whose cells (clamped to one beyond the grid) reach from
+    # corner to corner: its neighbourhood is every point, no stage holds it
+    assert len(query) <= pointcloud.NN_THREADS and len(ref) > NN_STAGE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pointcloud.nearest_index(r, q)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    assert torch.equal(got, pointcloud.nearest_index_reference(r, q))
+    assert seconds < 1.0, seconds
 
 
 def test_filters_on_the_card_keep_the_cpu_points(cuda_device):
