@@ -1,0 +1,25 @@
+"""sfm.ba_s: seconds a scene in `ba.full` spans: every LM bundle adjustment,
+between waves and final (sfm/pipeline.py bundle_adjustment_full), mean over
+the window's SfM scenes.
+
+The scenes are the port's finished root spans (recon3d_tpu_torch/runtime/
+profiling.py `finished()`): the last len(rec["stats"]) of those named
+`sfm.reconstruct` that ended without an error, before the newest, which is
+the profiled scene. None where the program keeps no such record."""
+
+
+def _window(rec):
+    try:
+        from recon3d_tpu_torch.runtime.profiling import finished
+    except ImportError:
+        return []
+    n = len(rec["stats"])
+    roots = [r for r in finished() if r["name"] == "sfm.reconstruct" and r["ok"]]
+    return roots[-n - 1:-1] if rec["job"] == "sfm" and n and len(roots) > n else []
+
+
+def read(rec):
+    scenes = _window(rec)
+    if not scenes:
+        return None
+    return sum(r["seconds"].get("ba.full", 0.0) for r in scenes) / len(scenes)

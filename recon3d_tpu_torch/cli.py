@@ -183,7 +183,7 @@ def main(argv=None) -> int:
     from recon3d_tpu_torch.kernels import pointcloud
     from recon3d_tpu_torch.parallel.mesh import data_parallel_mesh, mesh_devices
     from recon3d_tpu_torch.runtime.device import resolve_device
-    from recon3d_tpu_torch.runtime.profiling import StageTimer, maybe_trace
+    from recon3d_tpu_torch.runtime.profiling import StageTimer, maybe_trace, span
 
     device = resolve_device(args.device)
     image_dir = resolve_dataset(args.dataset)
@@ -207,7 +207,8 @@ def main(argv=None) -> int:
     n_dev = mesh_devices(args.devices, device)
     mesh = data_parallel_mesh(n_dev, device)
     try:
-        with maybe_trace(args.profile, device):
+        # the run is one root trace; --profile's trace shows its spans
+        with maybe_trace(args.profile, device), span("cli.run") as run:
             stats, points = _run(args, device, image_dir, output_dir, timer, k1_calls, mesh)
     finally:
         if mesh is not None:
@@ -216,6 +217,7 @@ def main(argv=None) -> int:
     timer.report()
     if args.stats_json:
         stats["stage_times_s"] = timer.as_dict()
+        stats["trace"] = run.trace.aggregate()
         stats["num_sparse_points"] = int(len(points))
         stats["k1_calls_by_stage"] = k1_calls
         # K2's and K3's launches and plain calls in this run

@@ -15,11 +15,14 @@ of each chunk over its 'data' axis, the features replicated on every
 rank. Each shard returns what one device returns for its rows alone; on
 the CPU that is the whole chunk's result bit for bit, on a GPU a pair's
 F-RANSAC may round otherwise in a smaller batch (ROADMAP.md, section 3).
+
+Each segment of the extraction and of the match stage is a span
+(runtime/profiling.py), and every device->host read goes through its
+`pull`; the `timings=` dicts hold the segments' span durations.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +45,7 @@ from recon3d_tpu_torch.ops.sift import (
     extract_sift,
 )
 from recon3d_tpu_torch.runtime.device import resolve_device
+from recon3d_tpu_torch.runtime.profiling import pull, span
 
 
 class FeatureExtractor:
@@ -125,26 +129,26 @@ class FeatureExtractor:
         cfg = self.config
         images = np.asarray(images)
         V = images.shape[0]
-        _t = time.time()
-        u8 = np.clip(images * 255.0, 0, 255).astype(np.uint8)
-        tm["host_prep_s"] += time.time() - _t
+        with span("extract.host_prep") as sp:
+            u8 = np.clip(images * 255.0, 0, 255).astype(np.uint8)
+        tm["host_prep_s"] += sp.seconds
         window = chunk * max(1, max_inflight_chunks)
         win_feats: List[SiftFeatures] = []
         for w0 in range(0, V, window):
             wu8 = u8[w0: w0 + window]
             det_chunks = []
-            _t = time.time()
-            for c0 in range(0, wu8.shape[0], chunk):
-                batch = torch.from_numpy(wu8[c0: c0 + chunk]).to(self.device)
-                det_chunks.append(detect_sift(
-                    self._preproc(batch.to(torch.float32) / 255.0),
-                    **self._detect_kwargs()))
-            tm["detect_dispatch_s"] += time.time() - _t
+            with span("extract.detect_dispatch") as sp:
+                for c0 in range(0, wu8.shape[0], chunk):
+                    batch = torch.from_numpy(wu8[c0: c0 + chunk]).to(self.device)
+                    det_chunks.append(detect_sift(
+                        self._preproc(batch.to(torch.float32) / 255.0),
+                        **self._detect_kwargs()))
+            tm["detect_dispatch_s"] += sp.seconds
             # fetch the counts only after the window's chunks have all been
             # launched: a fetch inside the loop would put a sync between them
-            _t = time.time()
-            counts = torch.cat([c for _, _, c in det_chunks]).cpu().numpy()  # (Vw, O)
-            tm["counts_sync_s"] += time.time() - _t
+            with span("extract.counts_sync") as sp:
+                counts = pull(torch.cat([c for _, _, c in det_chunks])).numpy()  # (Vw, O)
+            tm["counts_sync_s"] += sp.seconds
             caps_det = tuple(int(d["valid"].shape[-1]) for d in det_chunks[0][1])
             # pow-2 buckets with 25% headroom, clipped to the detection
             # caps; one caps_sel per window, so its chunks share a capacity
@@ -155,26 +159,25 @@ class FeatureExtractor:
                 for o, cap in enumerate(caps_det)
             )
             chunks = []
-            _t = time.time()
-            while det_chunks:
-                # pop: release each chunk's pyramid as soon as its describe
-                # has been launched
-                pyr, dets, _ = det_chunks.pop(0)
-                chunks.append(describe_sift(
-                    pyr, dets, caps_sel,
-                    scales=cfg.scales_per_octave,
-                    descriptor_max_value=cfg.descriptor_max_value,
-                    multi_orientation=cfg.multi_orientation,
-                ))
-                del pyr, dets
-            tm["describe_dispatch_s"] += time.time() - _t
-            _t = time.time()
-            win_feats.append(chunks[0] if len(chunks) == 1
-                             else SiftFeatures.cat(chunks, dim=0))
-            tm["concat_s"] += time.time() - _t
+            with span("extract.describe_dispatch") as sp:
+                while det_chunks:
+                    # pop: release each chunk's pyramid as soon as its
+                    # describe has been launched
+                    pyr, dets, _ = det_chunks.pop(0)
+                    chunks.append(describe_sift(
+                        pyr, dets, caps_sel,
+                        scales=cfg.scales_per_octave,
+                        descriptor_max_value=cfg.descriptor_max_value,
+                        multi_orientation=cfg.multi_orientation,
+                    ))
+                    del pyr, dets
+            tm["describe_dispatch_s"] += sp.seconds
+            with span("extract.concat") as sp:
+                win_feats.append(chunks[0] if len(chunks) == 1
+                                 else SiftFeatures.cat(chunks, dim=0))
+            tm["concat_s"] += sp.seconds
         if len(win_feats) == 1:
             return win_feats[0]
-        _t = time.time()
         kmax = max(int(f.valid.shape[1]) for f in win_feats)
 
         def _pad(a: torch.Tensor) -> torch.Tensor:
@@ -183,8 +186,9 @@ class FeatureExtractor:
             fill = a.new_zeros((a.shape[0], kmax - a.shape[1]) + a.shape[2:])
             return torch.cat([a, fill], dim=1)
 
-        out = SiftFeatures.cat([f.map(_pad) for f in win_feats], dim=0)
-        tm["concat_s"] += time.time() - _t
+        with span("extract.concat") as sp:
+            out = SiftFeatures.cat([f.map(_pad) for f in win_feats], dim=0)
+        tm["concat_s"] += sp.seconds
         return out
 
 
@@ -233,10 +237,10 @@ class FeatureMatcher:
             threshold_px=self.config.ransac_threshold_px,
             num_hypotheses=self.config.ransac_hypotheses,
         )
-        enough = int(m.num_matches) >= min_matches
+        enough = int(pull(m.num_matches)) >= min_matches
         inlier_mask = res.inliers & m.mask if enough else torch.zeros_like(m.mask)
         out = MatchResult(idx1=m.idx1, idx2=m.idx2, distance=m.distance, mask=inlier_mask)
-        return out, res.F, (int(res.num_inliers) if enough else 0)
+        return out, res.F, (int(pull(res.num_inliers)) if enough else 0)
 
 
 def _match_verify_batch(
@@ -321,68 +325,68 @@ def match_pairs_batched(
     caller applies the min_matches gates."""
     tm = timings if timings is not None else {}
     cfg = config or MatchConfig()
-    _t = time.time()
-    if isinstance(features, (list, tuple)):
-        features = features[0].map(lambda *a: torch.stack(a), *features[1:])
-    dev = features.valid.device
-    # the one synchronous fetch of the prep: (V, K) validity bits
-    valid_np = features.valid.cpu().numpy()
-    tm["valid_fetch_s"] = time.time() - _t
-    _t = time.time()
-    C = match_capacity(valid_np)
-    # stable compaction: valid entries first, remember original indices
-    order = np.argsort(~valid_np, axis=1, kind="stable")[:, :C]  # (V, C)
-    od = torch.from_numpy(order).to(dev)
+    with span("match.valid_fetch") as sp:
+        if isinstance(features, (list, tuple)):
+            features = features[0].map(lambda *a: torch.stack(a), *features[1:])
+        dev = features.valid.device
+        # the one synchronous fetch of the prep: (V, K) validity bits
+        valid_np = pull(features.valid).numpy()
+    tm["valid_fetch_s"] = sp.seconds
+    with span("match.compact") as sp:
+        C = match_capacity(valid_np)
+        # stable compaction: valid entries first, remember original indices
+        order = np.argsort(~valid_np, axis=1, kind="stable")[:, :C]  # (V, C)
+        od = torch.from_numpy(order).to(dev)
 
-    # one gathered compaction per field, on the device
-    row = torch.arange(od.shape[0], device=dev)[:, None]
-    desc = features.desc[row, od]
-    valid = features.valid[row, od].to(torch.float32)
-    xy = features.xy[row, od]
-    tm["compact_s"] = time.time() - _t
+        # one gathered compaction per field, on the device
+        row = torch.arange(od.shape[0], device=dev)[:, None]
+        desc = features.desc[row, od]
+        valid = features.valid[row, od].to(torch.float32)
+        xy = features.xy[row, od]
+    tm["compact_s"] = sp.seconds
     if mesh is not None:
-        _t = time.time()
-        n_data = mesh.shape["data"]
-        chunk = max(chunk, n_data) // n_data * n_data
-        idx2, inl, F, n_inl, n_raw = _match_sharded(
-            mesh, desc, valid, xy, pairs, generator, cfg, chunk)
-        tm["dispatch_s"] = time.time() - _t
+        with span("match.dispatch") as sp:
+            n_data = mesh.shape["data"]
+            chunk = max(chunk, n_data) // n_data * n_data
+            idx2, inl, F, n_inl, n_raw = _match_sharded(
+                mesh, desc, valid, xy, pairs, generator, cfg, chunk)
+        tm["dispatch_s"] = sp.seconds
         return _translate(pairs, order, C, idx2, inl, F, n_inl, n_raw, tm)
     # Launch every chunk, keep the outputs on the device, then pull each
     # field once: one sync for the whole stage.
-    _t = time.time()
-    chunk_out = []
-    for c0 in range(0, len(pairs), chunk):
-        batch = np.asarray(pairs[c0: c0 + chunk], np.int64).reshape(-1, 2)
-        pij = torch.from_numpy(batch).to(dev)
-        chunk_out.append(_match_verify_batch(
-            desc, valid, xy, pij[:, 0], pij[:, 1], generator,
-            float(cfg.ransac_threshold_px),
-            ratio=cfg.ratio,
-            cross_check=cfg.cross_check,
-            num_hypotheses=cfg.ransac_hypotheses,
-        ))
-    tm["dispatch_s"] = time.time() - _t
-    _t = time.time()
-    idx2, inl, F, n_inl, n_raw = (
-        torch.cat(field, dim=0).cpu().numpy() for field in zip(*chunk_out)
-    )
-    tm["result_pull_s"] = time.time() - _t
+    with span("match.dispatch") as sp:
+        chunk_out = []
+        for c0 in range(0, len(pairs), chunk):
+            batch = np.asarray(pairs[c0: c0 + chunk], np.int64).reshape(-1, 2)
+            pij = torch.from_numpy(batch).to(dev)
+            chunk_out.append(_match_verify_batch(
+                desc, valid, xy, pij[:, 0], pij[:, 1], generator,
+                float(cfg.ransac_threshold_px),
+                ratio=cfg.ratio,
+                cross_check=cfg.cross_check,
+                num_hypotheses=cfg.ransac_hypotheses,
+            ))
+    tm["dispatch_s"] = sp.seconds
+    with span("match.result_pull") as sp:
+        idx2, inl, F, n_inl, n_raw = (
+            pull(torch.cat(field, dim=0)).numpy() for field in zip(*chunk_out)
+        )
+    tm["result_pull_s"] = sp.seconds
     return _translate(pairs, order, C, idx2, inl, F, n_inl, n_raw, tm)
 
 
 def _translate(pairs, order, C, idx2, inl, F, n_inl, n_raw, tm):
     """The per-pair result tuples, compacted positions translated back to
     the original keypoint ids."""
-    _t = time.time()
-    out = []
-    for r, (i, j) in enumerate(pairs):
-        # translate compacted positions back to original keypoint ids
-        sel = np.flatnonzero(inl[r])
-        idx1_orig = order[i][sel]
-        idx2_orig = order[j][np.clip(idx2[r][sel], 0, C - 1)]
-        out.append((i, j, idx1_orig, idx2_orig, F[r], int(n_inl[r]), int(n_raw[r])))
-    tm["translate_s"] = time.time() - _t
+    with span("match.translate") as sp:
+        out = []
+        for r, (i, j) in enumerate(pairs):
+            # translate compacted positions back to original keypoint ids
+            sel = np.flatnonzero(inl[r])
+            idx1_orig = order[i][sel]
+            idx2_orig = order[j][np.clip(idx2[r][sel], 0, C - 1)]
+            out.append((i, j, idx1_orig, idx2_orig, F[r], int(n_inl[r]), int(n_raw[r])))
+    tm["translate_s"] = sp.seconds
     return out
 
 
@@ -416,7 +420,7 @@ def _match_shard(mesh, p: dict):
     res = [torch.cat(field, dim=0) for field in zip(*out)]
     if mesh.rank == 0:
         return res, gen.get_state()
-    return [r.cpu().numpy() for r in res]
+    return [pull(r).numpy() for r in res]
 
 
 def _match_sharded(mesh, desc, valid, xy, pairs, generator, cfg, chunk):
@@ -430,12 +434,12 @@ def _match_sharded(mesh, desc, valid, xy, pairs, generator, cfg, chunk):
     common = dict(pairs=[tuple(map(int, q)) for q in pairs], chunk=chunk, config=cfg,
                   generator_state=generator.get_state())
     rank0 = dict(desc=desc, valid=valid, xy=xy, **common)
-    host = dict(desc=desc.cpu(), valid=valid.cpu(), xy=xy.cpu(), **common)
+    host = dict(desc=pull(desc), valid=pull(valid), xy=pull(xy), **common)
     res = mesh.call(_match_shard, [rank0] + [host] * (mesh.world - 1))
     (own, state), rest = res[0], res[1:]
     generator.set_state(state)
     from recon3d_tpu_torch.parallel.mesh import chunk_rows_in_order
 
-    fields = [[o.cpu().numpy() for o in own]] + rest
+    fields = [[pull(o).numpy() for o in own]] + rest
     # the ranks of model index 0, in data order, each with its rows of every chunk
     return tuple(chunk_rows_in_order(fields[::mesh.shape["model"]], len(pairs), chunk))

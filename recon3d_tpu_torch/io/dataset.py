@@ -20,6 +20,7 @@ from recon3d_tpu_torch.camera import Camera
 from recon3d_tpu_torch.io.hostimg import resize_batch_np, rgb_to_gray_np
 from recon3d_tpu_torch.ops.image import undistort_image
 from recon3d_tpu_torch.runtime.device import resolve_device
+from recon3d_tpu_torch.runtime.profiling import traced
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".webp")
 
@@ -157,6 +158,7 @@ def load_image_set(
     )
 
 
+@traced("io.image_set")
 def image_set_from_arrays(
     images: np.ndarray, camera: Camera, names: Optional[List[str]] = None
 ) -> ImageSet:

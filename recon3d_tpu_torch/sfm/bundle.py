@@ -26,13 +26,14 @@ takes the same step.
 
 The LM loop's condition lives on the device, so each LM iteration costs one
 host read (at most `max_iterations` accepted steps a call); the CG inside
-an iteration reads nothing back.
+an iteration reads nothing back. A call's host table, upload, solve (one
+`ba.lm_step` span a step) and fetch are spans (runtime/profiling.py), and
+it counts `ba.calls`, `ba.lm_steps` and `ba.lm_accepted`.
 """
 
 from __future__ import annotations
 
 import itertools
-import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -43,6 +44,7 @@ from recon3d_tpu_torch.ops.lie import se3_exp
 from recon3d_tpu_torch.ops.linalg import einsum_hp, matmul_hp
 from recon3d_tpu_torch.ops.pnp import pinhole_jacobian, twist_jacobian
 from recon3d_tpu_torch.runtime.device import resolve_device
+from recon3d_tpu_torch.runtime.profiling import count, pull, span
 
 
 class BAData(NamedTuple):
@@ -307,20 +309,23 @@ def _lm_loop(
     damping = torch.as_tensor(damping0, dtype=X0.dtype, device=X0.device)
     it = 0
     while it < max_iters:
-        cand, cost0, cost1 = _lm_step(
-            data._replace(R0=R0, t0=t0, X0=X0), damping, delta,
-            cg_iters=cg_iters, motion_only=motion_only, mesh=mesh,
-        )
-        accept = cost1 < cost0
-        Rn, tn = _apply_increment(cand.xi, R0, t0)
-        R0 = torch.where(accept, Rn, R0)
-        t0 = torch.where(accept, tn, t0)
-        X0 = torch.where(accept, X0 + cand.dX, X0)
-        converged = accept & ((cost0 - cost1) / cost0.clamp_min(1e-12) < 1e-5)
-        diverged = ~accept & (damping > 1e4)
-        damping = torch.where(accept, (damping * 0.5).clamp_min(1e-8), damping * 4.0)
-        # the one host read of the iteration
-        accepted, done = torch.stack([accept, converged | diverged]).tolist()
+        with span("ba.lm_step"):
+            cand, cost0, cost1 = _lm_step(
+                data._replace(R0=R0, t0=t0, X0=X0), damping, delta,
+                cg_iters=cg_iters, motion_only=motion_only, mesh=mesh,
+            )
+            accept = cost1 < cost0
+            Rn, tn = _apply_increment(cand.xi, R0, t0)
+            R0 = torch.where(accept, Rn, R0)
+            t0 = torch.where(accept, tn, t0)
+            X0 = torch.where(accept, X0 + cand.dX, X0)
+            converged = accept & ((cost0 - cost1) / cost0.clamp_min(1e-12) < 1e-5)
+            diverged = ~accept & (damping > 1e4)
+            damping = torch.where(accept, (damping * 0.5).clamp_min(1e-8), damping * 4.0)
+            # the one host read of the iteration
+            accepted, done = pull(torch.stack([accept, converged | diverged])).tolist()
+            count("ba.lm_steps")
+            count("ba.lm_accepted", int(accepted))
         it += int(accepted)
         if done:
             break
@@ -487,7 +492,6 @@ def bundle_adjust_log(
 
     poses: {cam_id: (R, t)}; points: (P, 3); kp_table: (kp_flat (sumK, 2),
     kp_off (V+1,)). Returns (new_poses, new_points, stats)."""
-    t_prep0 = time.time()
     dev = mesh.device if mesh is not None else resolve_device(device)
     config = config or BundleConfig()
     hC, hP, hO = size_hint or (0, 0, 0)
@@ -498,24 +502,24 @@ def bundle_adjust_log(
     O = int(len(obs_log))
     if nC < 2 or nP < 8 or O == 0:
         return poses, points, {"iterations": 0}
+    count("ba.calls")
 
-    C = _bucket(max(nC, hC), 4)
-    P = _bucket(max(nP, hP), 256)
-    cap = _bucket(max(O, hO), 256)
+    with span("ba.prep"):
+        C = _bucket(max(nC, hC), 4)
+        P = _bucket(max(nP, hP), 256)
+        cap = _bucket(max(O, hO), 256)
 
-    row_need = max(int(obs_log[:, 1].max()), max(cam_ids)) + 1
-    row_of = np.full(_bucket(max(row_need, hC), 4), -1, np.int64)
-    row_of[np.asarray(cam_ids, np.int64)] = np.arange(nC, dtype=np.int64)
-    R0 = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
-    t0 = np.zeros((C, 3), np.float32)
-    t0[:, 2] = 1.0
-    R0[:nC] = np.stack([poses[c][0] for c in cam_ids])
-    t0[:nC] = np.stack([poses[c][1] for c in cam_ids])
-    X0 = np.zeros((P, 3), np.float32)
-    X0[:nP] = points
-    t_table = time.time() - t_prep0
+        row_need = max(int(obs_log[:, 1].max()), max(cam_ids)) + 1
+        row_of = np.full(_bucket(max(row_need, hC), 4), -1, np.int64)
+        row_of[np.asarray(cam_ids, np.int64)] = np.arange(nC, dtype=np.int64)
+        R0 = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+        t0 = np.zeros((C, 3), np.float32)
+        t0[:, 2] = 1.0
+        R0[:nC] = np.stack([poses[c][0] for c in cam_ids])
+        t0[:nC] = np.stack([poses[c][1] for c in cam_ids])
+        X0 = np.zeros((P, 3), np.float32)
+        X0[:nP] = points
 
-    t_up0 = time.time()
     kp_flat, kp_off = kp_table
     solve_kw = dict(
         damping0=config.init_damping, delta=config.robust_delta_px,
@@ -536,56 +540,55 @@ def bundle_adjust_log(
     if mesh is not None:
         # every rank builds the table from the same raw log and keeps its
         # contiguous rows; the capacity is rounded up to a multiple of 'data'
-        n_data = mesh.shape["data"]
-        cap = -(-cap // n_data) * n_data
-        per = cap // n_data
-        common = dict(K=np.asarray(K, np.float32), R0=R0, t0=t0, X0=X0, log=padded_log(cap),
-                      n_obs=O, row_of=row_of, kw=solve_kw)
-        payloads = [dict(common, rows=(d * per, (d + 1) * per))
-                    for d in map(mesh.data_index_of, range(mesh.world))]
-        t_upload = time.time() - t_up0
-        t_prep = time.time() - t_prep0
-        t_solve0 = time.time()
-        R_f, t_f, X_f, iters, rms0, rms1, n_used = mesh.call(_ba_shard, payloads)[0]
+        with span("ba.upload"):
+            n_data = mesh.shape["data"]
+            cap = -(-cap // n_data) * n_data
+            per = cap // n_data
+            common = dict(K=np.asarray(K, np.float32), R0=R0, t0=t0, X0=X0,
+                          log=padded_log(cap), n_obs=O, row_of=row_of, kw=solve_kw)
+            payloads = [dict(common, rows=(d * per, (d + 1) * per))
+                        for d in map(mesh.data_index_of, range(mesh.world))]
+        with span("ba.solve"):
+            R_f, t_f, X_f, iters, rms0, rms1, n_used = mesh.call(_ba_shard, payloads)[0]
     else:
-        cache = device_cache if device_cache is not None else {}
-        cached = cache.get("log")
-        if (
-            cached is not None and cached["cap"] == cap and cached["count"] <= O
-            and cached["cam"].device.type == dev.type
-        ):
-            count = cached["count"]
-            dev_cam, dev_pid, dev_xy = cached["cam"], cached["pid"], cached["xy"]
-            if O > count:
-                tc, tp, txy = rows_of(obs_log[count:O])
-                dev_cam[count:O] = torch.from_numpy(tc).to(dev)
-                dev_pid[count:O] = torch.from_numpy(tp).to(dev)
-                dev_xy[count:O] = torch.from_numpy(txy).to(dev)
-        else:
-            # any cache miss (no cache, another capacity or device, a log
-            # that shrank) is a full upload
-            dev_cam, dev_pid, dev_xy = (torch.from_numpy(a).to(dev) for a in padded_log(cap))
-        cache["log"] = {"cap": cap, "count": O, "cam": dev_cam, "pid": dev_pid, "xy": dev_xy}
-        t_upload = time.time() - t_up0
-        t_prep = time.time() - t_prep0
+        with span("ba.upload"):
+            cache = device_cache if device_cache is not None else {}
+            cached = cache.get("log")
+            if (
+                cached is not None and cached["cap"] == cap and cached["count"] <= O
+                and cached["cam"].device.type == dev.type
+            ):
+                have = cached["count"]
+                dev_cam, dev_pid, dev_xy = cached["cam"], cached["pid"], cached["xy"]
+                if O > have:
+                    tc, tp, txy = rows_of(obs_log[have:O])
+                    dev_cam[have:O] = torch.from_numpy(tc).to(dev)
+                    dev_pid[have:O] = torch.from_numpy(tp).to(dev)
+                    dev_xy[have:O] = torch.from_numpy(txy).to(dev)
+            else:
+                # any cache miss (no cache, another capacity or device, a log
+                # that shrank) is a full upload
+                dev_cam, dev_pid, dev_xy = (torch.from_numpy(a).to(dev)
+                                            for a in padded_log(cap))
+            cache["log"] = {"cap": cap, "count": O, "cam": dev_cam, "pid": dev_pid,
+                            "xy": dev_xy}
 
-        t_solve0 = time.time()
-        R_f, t_f, X_f, iters, rms0, rms1, n_used = _solve_table(_obs_table(
-            torch.from_numpy(np.asarray(K, np.float32)).to(dev),
-            torch.from_numpy(R0).to(dev), torch.from_numpy(t0).to(dev),
-            torch.from_numpy(X0).to(dev), dev_cam, dev_pid, dev_xy, O,
-            torch.from_numpy(row_of).to(dev)), **solve_kw)
-    R_final = R_f.cpu().numpy()
-    t_final = t_f.cpu().numpy()
-    new_poses = {c: (R_final[i], t_final[i]) for c, i in cam_row.items()}
-    new_points = X_f.cpu().numpy()[:nP]
-    stats = {
-        "iterations": int(iters),
-        "rms_before": float(rms0), "rms_after": float(rms1),
-        "num_obs": int(n_used), "prep_s": round(t_prep, 3),
-        "table_s": round(t_table, 3), "upload_s": round(t_upload, 3),
-        "solve_fetch_s": round(time.time() - t_solve0, 3),
-    }
+        with span("ba.solve"):
+            R_f, t_f, X_f, iters, rms0, rms1, n_used = _solve_table(_obs_table(
+                torch.from_numpy(np.asarray(K, np.float32)).to(dev),
+                torch.from_numpy(R0).to(dev), torch.from_numpy(t0).to(dev),
+                torch.from_numpy(X0).to(dev), dev_cam, dev_pid, dev_xy, O,
+                torch.from_numpy(row_of).to(dev)), **solve_kw)
+    with span("ba.fetch"):
+        R_final = pull(R_f).numpy()
+        t_final = pull(t_f).numpy()
+        new_poses = {c: (R_final[i], t_final[i]) for c, i in cam_row.items()}
+        new_points = pull(X_f).numpy()[:nP]
+        stats = {
+            "iterations": int(iters),
+            "rms_before": float(pull(rms0)), "rms_after": float(pull(rms1)),
+            "num_obs": int(pull(n_used)),
+        }
     return new_poses, new_points, stats
 
 

@@ -23,7 +23,6 @@ on the device, seeded from config.sfm.seed and consumed in stage order.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -55,6 +54,7 @@ from recon3d_tpu_torch.ops.triangulate import (
     validate_triangulation,
 )
 from recon3d_tpu_torch.runtime.device import resolve_device
+from recon3d_tpu_torch.runtime.profiling import count, current, pull, span, traced
 from recon3d_tpu_torch.sfm.bundle import bundle_adjust_log, kp_table_of
 
 
@@ -328,35 +328,36 @@ class SfMPipeline:
     def extract_features(self):
         """Feature extraction of every image: SIFT as one two-phase batch,
         SuperPoint image by image."""
-        t0 = time.time()
-        n = self.image_set.gray.shape[0]
-        self.kp_xy = []
-        self.kp_to_point = []
-        tm: Dict[str, float] = {}
-        if self.neural_mode:
-            self.features_stacked = None
-            self.features = [self.extractor.extract(self.image_set.gray[i]) for i in range(n)]
-            t_pull = time.time()
-            xy_all = torch.stack([f.xy for f in self.features]).cpu().numpy()
-            valid_all = torch.stack([f.valid for f in self.features]).cpu().numpy()
-        else:
-            # stacked (V, ...) device tensors; per-image views only on demand
-            stacked = self.extractor.extract_batch(self.image_set.gray, timings=tm)
-            self.features_stacked = stacked
-            self.features = _LazyFeatureList(stacked, n)
-            # keypoint pull: the one host sync of the stage. It waits for
-            # every describe, then downloads (V, K, 2) + (V, K); the
-            # descriptors stay on the device, where matching reads them.
-            t_pull = time.time()
-            xy_all = stacked.xy.cpu().numpy()
-            valid_all = stacked.valid.cpu().numpy()
-        tm["kp_pull_sync_s"] = time.time() - t_pull
-        self.stats["extract_detail_s"] = {k: round(v, 3) for k, v in tm.items()}
-        for r in range(n):
-            self.kp_xy.append(xy_all[r])
-            self.kp_to_point.append(np.full(xy_all.shape[1], -1, dtype=np.int64))
-        counts = valid_all.sum(1).astype(int).tolist()
-        self.stats["extract_time"] = time.time() - t0
+        with span("sfm.extract") as stage:
+            n = self.image_set.gray.shape[0]
+            self.kp_xy = []
+            self.kp_to_point = []
+            tm: Dict[str, float] = {}
+            if self.neural_mode:
+                self.features_stacked = None
+                self.features = [self.extractor.extract(self.image_set.gray[i])
+                                 for i in range(n)]
+                with span("extract.kp_pull") as sp:
+                    xy_all = pull(torch.stack([f.xy for f in self.features])).numpy()
+                    valid_all = pull(torch.stack([f.valid for f in self.features])).numpy()
+            else:
+                # stacked (V, ...) device tensors; per-image views only on demand
+                stacked = self.extractor.extract_batch(self.image_set.gray, timings=tm)
+                self.features_stacked = stacked
+                self.features = _LazyFeatureList(stacked, n)
+                # keypoint pull: the one host sync of the stage. It waits for
+                # every describe, then downloads (V, K, 2) + (V, K); the
+                # descriptors stay on the device, where matching reads them.
+                with span("extract.kp_pull") as sp:
+                    xy_all = pull(stacked.xy).numpy()
+                    valid_all = pull(stacked.valid).numpy()
+            tm["kp_pull_sync_s"] = sp.seconds
+            self.stats["extract_detail_s"] = {k: round(v, 3) for k, v in tm.items()}
+            for r in range(n):
+                self.kp_xy.append(xy_all[r])
+                self.kp_to_point.append(np.full(xy_all.shape[1], -1, dtype=np.int64))
+            counts = valid_all.sum(1).astype(int).tolist()
+        self.stats["extract_time"] = stage.seconds
         self.stats["features_per_image"] = counts
         self.stats["selection_capacity"] = int(xy_all.shape[1])
         print(f"[sfm] extracted features: mean {np.mean(counts):.0f}/image "
@@ -389,34 +390,35 @@ class SfMPipeline:
         """Geometric matching of the candidate pairs, whole chunks of pairs
         at a time (features/frontend.py match_pairs_batched, or the neural
         matcher's match_pairs_batched in neural mode)."""
-        t0 = time.time()
-        n = len(self.features)
-        pairs = self._candidate_pairs(n)
-        kept = 0
-        if pairs:
-            if self.neural_mode:
-                results = self.matcher.match_pairs_batched(
-                    self.features, pairs, self._generator,
-                    hw=self.image_set.gray.shape[1:3], mesh=self.mesh)
-            else:
-                tm: Dict[str, float] = {}
-                results = match_pairs_batched(
-                    self.features_stacked, pairs, self._generator,
-                    self.config.match, timings=tm, mesh=self.mesh,
-                )
-                self.stats["match_detail_s"] = {k: round(v, 3) for k, v in tm.items()}
-            mm = self.config.match.min_matches
-            for (i, j, idx1, idx2, F, n_inl, n_raw) in results:
-                if n_raw >= mm and n_inl >= mm:
-                    self.matches[(i, j)] = dict(idx1=idx1, idx2=idx2, F=F, n=len(idx1))
-                    kept += 1
-            if self.config.match.long_span_rematch and not self.neural_mode:
-                kept += self._rematch_long_span(pairs)
-        print(f"[sfm] matched {kept}/{len(pairs)} pairs "
-              f"({time.time() - t0:.1f}s)")
-        self._bridge_components(n)
-        self._build_kp_links()
-        self.stats["match_time"] = time.time() - t0
+        with span("sfm.match") as stage:
+            n = len(self.features)
+            pairs = self._candidate_pairs(n)
+            kept = 0
+            if pairs:
+                if self.neural_mode:
+                    results = self.matcher.match_pairs_batched(
+                        self.features, pairs, self._generator,
+                        hw=self.image_set.gray.shape[1:3], mesh=self.mesh)
+                else:
+                    tm: Dict[str, float] = {}
+                    results = match_pairs_batched(
+                        self.features_stacked, pairs, self._generator,
+                        self.config.match, timings=tm, mesh=self.mesh,
+                    )
+                    self.stats["match_detail_s"] = {k: round(v, 3) for k, v in tm.items()}
+                mm = self.config.match.min_matches
+                for (i, j, idx1, idx2, F, n_inl, n_raw) in results:
+                    if n_raw >= mm and n_inl >= mm:
+                        self.matches[(i, j)] = dict(idx1=idx1, idx2=idx2, F=F, n=len(idx1))
+                        kept += 1
+                if self.config.match.long_span_rematch and not self.neural_mode:
+                    with span("match.rematch"):
+                        kept += self._rematch_long_span(pairs)
+            print(f"[sfm] matched {kept}/{len(pairs)} pairs ({stage.seconds:.1f}s)")
+            with span("match.graph"):
+                self._bridge_components(n)
+                self._build_kp_links()
+        self.stats["match_time"] = stage.seconds
         self.stats["num_pairs"] = kept
         self.stats["num_candidate_pairs"] = len(pairs)
 
@@ -455,13 +457,13 @@ class SfMPipeline:
         gray = torch.from_numpy(self.image_set.gray[imgs]).to(self.device)
         H, W = gray.shape[1:]
         up = resize(gray, (int(H * s), int(W * s)))
-        feats = self.extractor.extract_batch(up.cpu().numpy())
+        feats = self.extractor.extract_batch(pull(up).numpy())
         res = match_pairs_batched(
             feats, [(local[i], local[j]) for (i, j) in failed],
             self._generator, mc, mesh=self.mesh,
         )
-        xy_up = feats.xy.cpu().numpy()       # upscaled-pixel coords
-        valid_np = feats.valid.cpu().numpy()
+        xy_up = pull(feats.xy).numpy()       # upscaled-pixel coords
+        valid_np = pull(feats.valid).numpy()
         # resize uses half-pixel centers: x_up = s*x + (s-1)/2
         xy_load = (xy_up - (s - 1.0) / 2.0) / s
         # conjugate F back to load coords: F_load = S^T F_up S
@@ -501,7 +503,7 @@ class SfMPipeline:
                 torch.from_numpy(hm).to(self.device),
                 threshold_px=mc.ransac_threshold_px * s,
             )
-            if int(hres.num_inliers) >= 0.8 * n_inl:
+            if int(pull(hres.num_inliers)) >= 0.8 * n_inl:
                 degenerate += 1
                 continue
             # Essential-compatibility gate: with K known, a geometrically
@@ -622,11 +624,11 @@ class SfMPipeline:
                     self.features[i], self.features[j], self._generator
                 )
                 if n_inl >= self.config.match.min_matches:
-                    mask = m.mask.cpu().numpy()
+                    mask = pull(m.mask).numpy()
                     self.matches[(i, j)] = dict(
-                        idx1=m.idx1.cpu().numpy()[mask],
-                        idx2=m.idx2.cpu().numpy()[mask],
-                        F=F.cpu().numpy(),
+                        idx1=pull(m.idx1).numpy()[mask],
+                        idx2=pull(m.idx2).numpy()[mask],
+                        F=pull(F).numpy(),
                         n=int(mask.sum()),
                     )
                     main |= other
@@ -688,8 +690,8 @@ class SfMPipeline:
             essential_hypotheses=cfg.init_essential_hypotheses,
             sample_indices=sample_indices,
         )
-        Rb, tb = Rb.cpu().numpy(), tb.cpu().numpy()
-        ok_b, par_b = ok_b.cpu().numpy(), par_b.cpu().numpy()
+        Rb, tb = pull(Rb).numpy(), pull(tb).numpy()
+        ok_b, par_b = pull(ok_b).numpy(), pull(par_b).numpy()
 
         best, best_score = None, 0.0
         for b, ((i, j), m) in enumerate(ranked):
@@ -807,6 +809,7 @@ class SfMPipeline:
                 best, best_n = i, n
         return best
 
+    @traced("wave.candidates")
     def _wave_candidates(self):
         """Eligible unregistered images, strongest first. Weak candidates
         (< 30% of the best correspondence count) are deferred, not
@@ -851,76 +854,81 @@ class SfMPipeline:
             {"prep": 0.0, "dispatch": 0.0, "solve_fetch": 0.0,
              "accept": 0.0, "waves": 0, "wave_shapes": []},
         )
-        tm = time.time()
-        # The wave and its correspondences are padded to geometric buckets:
-        # a padded image (no valid slot) costs a hypothesis batch and is
-        # never accepted.
-        B = _pad_pow2(len(cands), lo=1, hi=1024)
-        cap = _pad_pow2(max(len(k) for _, k, _ in cands))
-        # Index-based wave: upload integer index tables + the small (P, 3)
-        # point table instead of dense (B, cap, 3)/(B, cap, 2) operands.
-        pid_idx = np.full((B, cap), -1, np.int64)
-        kp_idx = np.zeros((B, cap), np.int64)
-        kp_flat, kp_off = self._kp_table()
-        P_arr = self._points_as_array()
-        P_cap = _pad_pow2(len(P_arr), lo=256)
-        P_pad = np.zeros((P_cap, 3), np.float32)
-        P_pad[: len(P_arr)] = P_arr
-        for b, (i, kps, pids) in enumerate(cands):
-            pid_idx[b, : len(pids)] = pids
-            kp_idx[b, : len(kps)] = kp_off[i] + np.asarray(kps)
-        thr = self._dev(np.asarray(cfg.pnp_thresholds_px, np.float32))
-        # keypoint table: unchanged after extraction, its device copy cached
-        kp_dev = self._kp_flat_dev
-        if kp_dev is None or kp_dev.shape[0] != len(kp_flat):
-            kp_dev = self._kp_flat_dev = self._dev(kp_flat)
-        det["prep"] += time.time() - tm
-        tm = time.time()
-        res = estimate_pose_pnp_wave_indexed(
-            self._generator, self._K_dev(),
-            self._dev(P_pad), kp_dev, self._dev(pid_idx), self._dev(kp_idx), thr,
-            num_hypotheses=cfg.pnp_hypotheses, sample_indices=sample_indices,
-        )
-        det["dispatch"] += time.time() - tm
-        tm = time.time()
-        Rb = res.R.cpu().numpy()               # (B, T, 3, 3)
-        tb = res.t.cpu().numpy()               # (B, T, 3)
-        n_inl_b = res.num_inliers.cpu().numpy()  # (B, T)
-        inl_b = res.inliers.cpu().numpy()      # (B, T, cap)
-        det["solve_fetch"] += time.time() - tm
-        det["waves"] += 1
-        det["wave_shapes"].append([int(B), int(cap)])
-        tm = time.time()
+        with span("wave.pnp"):
+            with span("pnp.prep") as sp:
+                # The wave and its correspondences are padded to geometric
+                # buckets: a padded image (no valid slot) costs a hypothesis
+                # batch and is never accepted.
+                B = _pad_pow2(len(cands), lo=1, hi=1024)
+                cap = _pad_pow2(max(len(k) for _, k, _ in cands))
+                # Index-based wave: upload integer index tables + the small
+                # (P, 3) point table instead of dense (B, cap, 3)/(B, cap, 2)
+                # operands.
+                pid_idx = np.full((B, cap), -1, np.int64)
+                kp_idx = np.zeros((B, cap), np.int64)
+                kp_flat, kp_off = self._kp_table()
+                P_arr = self._points_as_array()
+                P_cap = _pad_pow2(len(P_arr), lo=256)
+                P_pad = np.zeros((P_cap, 3), np.float32)
+                P_pad[: len(P_arr)] = P_arr
+                for b, (i, kps, pids) in enumerate(cands):
+                    pid_idx[b, : len(pids)] = pids
+                    kp_idx[b, : len(kps)] = kp_off[i] + np.asarray(kps)
+                thr = self._dev(np.asarray(cfg.pnp_thresholds_px, np.float32))
+                # keypoint table: unchanged after extraction, its device copy cached
+                kp_dev = self._kp_flat_dev
+                if kp_dev is None or kp_dev.shape[0] != len(kp_flat):
+                    kp_dev = self._kp_flat_dev = self._dev(kp_flat)
+            det["prep"] += sp.seconds
+            with span("pnp.dispatch") as sp:
+                res = estimate_pose_pnp_wave_indexed(
+                    self._generator, self._K_dev(),
+                    self._dev(P_pad), kp_dev, self._dev(pid_idx), self._dev(kp_idx), thr,
+                    num_hypotheses=cfg.pnp_hypotheses, sample_indices=sample_indices,
+                )
+            det["dispatch"] += sp.seconds
+            with span("pnp.fetch") as sp:
+                Rb = pull(res.R).numpy()                 # (B, T, 3, 3)
+                tb = pull(res.t).numpy()                 # (B, T, 3)
+                n_inl_b = pull(res.num_inliers).numpy()  # (B, T)
+                inl_b = pull(res.inliers).numpy()        # (B, T, cap)
+            det["solve_fetch"] += sp.seconds
+            det["waves"] += 1
+            det["wave_shapes"].append([int(B), int(cap)])
 
-        accepted: List[int] = []
-        for b, (i, kps, pids) in enumerate(cands):
-            n = len(kps)
-            need = max(
-                min_corr or cfg.pnp_min_correspondences,
-                int(min_inlier_frac * n),
-            )
-            for ti in range(len(cfg.pnp_thresholds_px)):
-                if int(n_inl_b[b, ti]) < need:
-                    continue
-                self.poses[i] = (
-                    Rb[b, ti].astype(np.float32), tb[b, ti].astype(np.float32)
-                )
-                self.registered.add(i)
-                self.corr.pop(i, None)  # the index only serves unregistered images
-                # touch only the accepted inlier links (array-side mask)
-                sel = (
-                    np.asarray(inl_b[b, ti][:n], bool)
-                    & (self.kp_to_point[i][kps] < 0)
-                )
-                for kp, pid in zip(
-                    np.asarray(kps)[sel].tolist(),
-                    np.asarray(pids)[sel].tolist(),
-                ):
-                    self._note_kp_link(i, kp, pid)
-                    self._record_obs(pid, i, kp)
-                accepted.append(i)
-                break
-        det["accept"] += time.time() - tm
+            with span("pnp.accept") as sp:
+                accepted: List[int] = []
+                for b, (i, kps, pids) in enumerate(cands):
+                    n = len(kps)
+                    need = max(
+                        min_corr or cfg.pnp_min_correspondences,
+                        int(min_inlier_frac * n),
+                    )
+                    for ti in range(len(cfg.pnp_thresholds_px)):
+                        if int(n_inl_b[b, ti]) < need:
+                            continue
+                        self.poses[i] = (
+                            Rb[b, ti].astype(np.float32), tb[b, ti].astype(np.float32)
+                        )
+                        self.registered.add(i)
+                        self.corr.pop(i, None)  # the index only serves unregistered images
+                        # touch only the accepted inlier links (array-side mask)
+                        sel = (
+                            np.asarray(inl_b[b, ti][:n], bool)
+                            & (self.kp_to_point[i][kps] < 0)
+                        )
+                        for kp, pid in zip(
+                            np.asarray(kps)[sel].tolist(),
+                            np.asarray(pids)[sel].tolist(),
+                        ):
+                            self._note_kp_link(i, kp, pid)
+                            self._record_obs(pid, i, kp)
+                        accepted.append(i)
+                        break
+            det["accept"] += sp.seconds
+            count("wave.count")
+            count("wave.tried", len(cands))
+            count("wave.accepted", len(accepted))
         return accepted
 
     def register_image(self, i: int) -> bool:
@@ -971,7 +979,8 @@ class SfMPipeline:
             x = self.kp_xy[to_cam][kps].astype(np.float32)
             R, t = self.poses[to_cam]
             e = reprojection_errors(K, self._dev(R), self._dev(t),
-                                    self._dev(X), self._dev(x)).cpu().numpy()
+                                    self._dev(X), self._dev(x))
+            e = pull(e).numpy()
             good = e < cfg.max_reproj_error_px
             for kp, pid in zip(kps[good], pids[good]):
                 if self.kp_to_point[to_cam][kp] < 0:
@@ -1003,8 +1012,8 @@ class SfMPipeline:
             self._dev(x1p), self._dev(x2p), self._dev(maskp),
             cfg.max_reproj_error_px, cfg.min_parallax_deg, cfg.max_depth_factor,
         )
-        Xn = X.cpu().numpy()
-        okn = ok.cpu().numpy()[: len(x1)]
+        Xn = pull(X).numpy()
+        okn = pull(ok).numpy()[: len(x1)]
 
         created = 0
         for idx in np.nonzero(okn)[0]:
@@ -1018,6 +1027,7 @@ class SfMPipeline:
         """Triangulate image i against every registered partner."""
         return self._triangulate_images([i])
 
+    @traced("wave.triangulate")
     def _triangulate_images(self, imgs: List[int]) -> int:
         """Triangulate every match pair touching the given newly registered
         images: all images' link checks and pair triangulations of the
@@ -1078,9 +1088,9 @@ class SfMPipeline:
             # another camera's pose and pass garbage errors
             if not (ci[:n] >= 0).all():
                 raise RuntimeError("link references an unregistered camera")
-            e = _reproj_errors_gather(
+            e = pull(_reproj_errors_gather(
                 K, self._dev(Rs), self._dev(ts), self._dev(ci), self._dev(Xp), self._dev(xp),
-            ).cpu().numpy()[:n]
+            )).numpy()[:n]
             for k in np.nonzero(e < cfg.max_reproj_error_px)[0]:
                 cam, kp, pid = int(link_cam[k]), int(link_kp[k]), int(link_pid[k])
                 if self.kp_to_point[cam][kp] < 0:
@@ -1112,8 +1122,8 @@ class SfMPipeline:
             self._dev(x1p), self._dev(x2p), self._dev(maskp),
             cfg.max_reproj_error_px, cfg.min_parallax_deg, cfg.max_depth_factor,
         )
-        X_b = X_b.cpu().numpy()
-        ok_b = ok_b.cpu().numpy()
+        X_b = pull(X_b).numpy()
+        ok_b = pull(ok_b).numpy()
 
         total = 0
         for r, (a, b, ka, kb) in enumerate(fresh_sets):
@@ -1163,6 +1173,7 @@ class SfMPipeline:
         ts[: len(cams)] = np.stack([self.poses[i][1] for i in cams])
         return cams, Rs, ts, Xs, xs, ws
 
+    @traced("ba.light")
     def bundle_adjustment_light(self, iterations: int = 2):
         """Motion-only refinement: re-optimize every camera against its
         observations, with the error before and after, in one batched call
@@ -1177,12 +1188,14 @@ class SfMPipeline:
             self._K_dev(), self._dev(Rs), self._dev(ts),
             self._dev(Xs), self._dev(xs), self._dev(ws),
         )
-        Rn = Rn.cpu().numpy()
-        tn = tn.cpu().numpy()
+        Rn = pull(Rn).numpy()
+        tn = pull(tn).numpy()
         for r, i in enumerate(cams):
             self.poses[i] = (Rn[r], tn[r])
-        print(f"[sfm] motion refinement: reproj {float(e0):.3f} -> {float(e1):.3f} px")
+        print(f"[sfm] motion refinement: reproj {float(pull(e0)):.3f} -> "
+              f"{float(pull(e1)):.3f} px")
 
+    @traced("ba.full")
     def bundle_adjustment_full(self, final: bool = False):
         """Full sparse LM bundle adjustment over all cameras and points
         (sfm/bundle.py).
@@ -1228,31 +1241,35 @@ class SfMPipeline:
             {"prep": 0.0, "table": 0.0, "upload": 0.0,
              "solve_fetch": 0.0, "calls": 0, "iterations": []},
         )
-        det["prep"] += stats.get("prep_s", 0.0)
-        det["table"] += stats.get("table_s", 0.0)
-        det["upload"] += stats.get("upload_s", 0.0)
-        det["solve_fetch"] += stats.get("solve_fetch_s", 0.0)
+        # bundle_adjust_log's spans inside this call's ba.full span
+        sp = current()
+        table, upload = sp.within("ba.prep"), sp.within("ba.upload")
+        solve_fetch = sp.within("ba.solve") + sp.within("ba.fetch")
+        det["prep"] += table + upload
+        det["table"] += table
+        det["upload"] += upload
+        det["solve_fetch"] += solve_fetch
         det["calls"] += 1
         det["iterations"].append(stats.get("iterations", 0))
         print(f"[sfm] full BA: rms {stats.get('rms_before', 0):.3f} -> "
               f"{stats.get('rms_after', 0):.3f} px over {stats.get('num_obs', 0)} obs "
-              f"({stats.get('iterations', 0)} iters, prep {stats.get('prep_s', 0):.2f}s"
-              f" [table {stats.get('table_s', 0):.2f} upload {stats.get('upload_s', 0):.2f}], "
-              f"solve {stats.get('solve_fetch_s', 0):.2f}s)")
+              f"({stats.get('iterations', 0)} iters, prep {table + upload:.2f}s"
+              f" [table {table:.2f} upload {upload:.2f}], solve {solve_fetch:.2f}s)")
 
     def _mean_reproj_error(self) -> float:
         batch = self._camera_obs_batch()
         if batch is None:
             return 0.0
         cams, Rs, ts, Xs, xs, ws = batch
-        e = _reproj_errors_batch(
+        e = pull(_reproj_errors_batch(
             self._K_dev(), self._dev(Rs), self._dev(ts), self._dev(Xs), self._dev(xs),
-        ).cpu().numpy()
+        )).numpy()
         sel = ws > 0
         return float(e[sel].mean()) if sel.any() else 0.0
 
     # -- stage 7: full run --------------------------------------------------------
 
+    @traced("sfm.recover")
     def try_recover_images(self, rounds: int = 3):
         """Retry previously failed registrations, the whole retry set as
         one batched wave per round. Several rounds with fresh RANSAC draws:
@@ -1277,6 +1294,7 @@ class SfMPipeline:
             if not accepted:
                 return
 
+    @traced("sfm.rescue")
     def _rescue_unregistered(self) -> int:
         """Last-chance recovery of views the match stage starved
         (feature-poor views whose pair matches never reached
@@ -1326,8 +1344,8 @@ class SfMPipeline:
             s = 1.0  # load res already near the feature-scale floor
         gray = self.image_set.gray[involved]
         if s != 1.0:
-            up = resize(torch.from_numpy(np.ascontiguousarray(gray)).to(self.device),
-                        (int(H0 * s), int(W0 * s))).cpu().numpy()
+            up = pull(resize(torch.from_numpy(np.ascontiguousarray(gray)).to(self.device),
+                             (int(H0 * s), int(W0 * s)))).numpy()
         else:
             up = gray
         # SIFT at the finer scale, in neural mode too
@@ -1336,8 +1354,8 @@ class SfMPipeline:
             feats, [(local[i], local[j]) for (i, j) in pairs],
             self._generator, cfg.match, mesh=self.mesh,
         )
-        xy_up = feats.xy.cpu().numpy()
-        valid_np = feats.valid.cpu().numpy()
+        xy_up = pull(feats.xy).numpy()
+        valid_np = pull(feats.valid).numpy()
         # resize uses half-pixel centres: x_up = s*x + (s-1)/2
         xy_load = (xy_up - (s - 1.0) / 2.0) / s
         S = np.array(
@@ -1425,88 +1443,35 @@ class SfMPipeline:
     ):
         """Full pipeline. Returns (points (P, 3) float32, colors (P, 3)
         uint8, poses {idx: CameraPose})."""
-        t0 = self._front_end(image_dir, max_images, image_set)
-
-        t_init = time.time()
-        pair = self.find_best_initial_pair()
-        if pair is None:
-            raise RuntimeError("no valid initial pair found")
-        self.initialize(pair)
-        self.stats["init_time"] = time.time() - t_init
-        t_incr = time.time()
-
-        # Incremental loop in WAVES: every eligible image PnPs in one
-        # batched call and all accepted images triangulate together, so the
-        # number of rounds drops from O(images) to O(waves). Two guards
-        # keep wave registration as accurate as a sequential one: (1) the
-        # wave size ramps with the number of registered cameras, so early
-        # images, whose PnP points all come from the thin initial-pair
-        # geometry, register nearly one by one while late images batch
-        # wide; (2) motion refinement runs after every wave, so the next
-        # wave's PnP sees polished poses.
-        since_ba = 0
-        wave_cap = max(1, self.config.sfm.registration_wave_size)
-        tw = {"cands": 0.0, "register": 0.0, "triangulate": 0.0,
-              "ba_light": 0.0, "ba_full": 0.0}
-        while True:
-            tm = time.time()
-            cands = self._wave_candidates()
-            tw["cands"] += time.time() - tm
-            if not cands:
-                break
-            # The ramp doubles but never exceeds 20% of the scene per wave:
-            # registering a large fraction of a small scene against stale
-            # geometry degrades it.
-            n_total = max(len(self.features), 1)
-            ramp = min(
-                max(1, len(self.registered) - 1),
-                max(1, int(np.ceil(0.2 * n_total))),
-            )
-            wave = cands[: min(wave_cap, ramp)]
-            tm = time.time()
-            accepted = self._register_wave(wave)
-            tw["register"] += time.time() - tm
-            for i, _, _ in wave:
-                if i not in self.registered:
-                    self.failed.add(i)
-                    print(f"[sfm] failed to register image {i}")
-            if accepted:
-                tm = time.time()
-                n_new = self._triangulate_images(accepted)
-                tw["triangulate"] += time.time() - tm
-                since_ba += len(accepted)
-                print(f"[sfm] registered wave {accepted} "
-                      f"({len(self.registered)}/{len(self.features)}), +{n_new} points")
-                tm = time.time()
+        with span("sfm.reconstruct") as root:
+            self._front_end(image_dir, max_images, image_set)
+            with span("sfm.init") as stage:
+                pair = self.find_best_initial_pair()
+                if pair is None:
+                    raise RuntimeError("no valid initial pair found")
+                self.initialize(pair)
+            self.stats["init_time"] = stage.seconds
+            with span("sfm.incremental") as stage:
+                self._incremental()
+            self.stats["incremental_time"] = stage.seconds
+            self.stats["incremental_breakdown_s"] = {
+                k: round(stage.within(name), 3) for k, name in (
+                    ("cands", "wave.candidates"), ("register", "wave.pnp"),
+                    ("triangulate", "wave.triangulate"), ("ba_light", "ba.light"),
+                    ("ba_full", "ba.full"))}
+            with span("sfm.final") as stage:
                 self.bundle_adjustment_light()
-                tw["ba_light"] += time.time() - tm
-                # Periodic full BA (points + poses): wave registration
-                # defers the between-image geometry updates of a sequential
-                # order, so drifted points must be re-solved, not just
-                # re-posed.
-                if since_ba >= self.config.sfm.ba_every_n_cameras:
-                    tm = time.time()
-                    self.bundle_adjustment_full()
-                    tw["ba_full"] += time.time() - tm
-                    since_ba = 0
-
-        self.stats["incremental_time"] = time.time() - t_incr
-        self.stats["incremental_breakdown_s"] = {k: round(v, 3) for k, v in tw.items()}
-        t_ba = time.time()
-        self.bundle_adjustment_light()
-        self.try_recover_images()
-        if self._rescue_unregistered():
-            self.try_recover_images()
-        self.bundle_adjustment_full(final=True)
-        self.drop_invalid_observations()
-        self._normalize_reconstruction()
-        self.stats["final_ba_time"] = time.time() - t_ba
-
-        elapsed = time.time() - t0
-        self.stats["total_time"] = elapsed
-        self.stats["num_points"] = len(self.points3d)
-        self.stats["num_cameras"] = len(self.registered)
-        self.stats["mean_reproj_px"] = self._mean_reproj_error()
+                self.try_recover_images()
+                if self._rescue_unregistered():
+                    self.try_recover_images()
+                self.bundle_adjustment_full(final=True)
+                self.drop_invalid_observations()
+                self._normalize_reconstruction()
+            self.stats["final_ba_time"] = stage.seconds
+            self.stats["num_points"] = len(self.points3d)
+            self.stats["num_cameras"] = len(self.registered)
+            self.stats["mean_reproj_px"] = self._mean_reproj_error()
+        self.stats["total_time"] = root.seconds
         accounted = sum(
             self.stats.get(k, 0.0)
             for k in ("load_time", "extract_time", "match_time", "init_time",
@@ -1515,7 +1480,7 @@ class SfMPipeline:
         print(
             f"[sfm] done: {len(self.points3d)} points, "
             f"{len(self.registered)}/{len(self.features)} cameras, "
-            f"reproj {self.stats['mean_reproj_px']:.3f} px, {elapsed:.1f}s "
+            f"reproj {self.stats['mean_reproj_px']:.3f} px, {root.seconds:.1f}s "
             f"(stages {accounted:.1f}s; load "
             f"{self.stats.get('load_time', 0.0):.1f}s; waves "
             f"{self.stats.get('incremental_breakdown_s')})"
@@ -1523,8 +1488,54 @@ class SfMPipeline:
 
         return self._result()
 
+    def _incremental(self):
+        """The registration loop after the initial pair, in WAVES: every
+        eligible image PnPs in one batched call and all accepted images
+        triangulate together, so the number of rounds drops from O(images)
+        to O(waves). Two guards keep wave registration as accurate as a
+        sequential one: (1) the wave size ramps with the number of
+        registered cameras, so early images, whose PnP points all come from
+        the thin initial-pair geometry, register nearly one by one while
+        late images batch wide; (2) motion refinement runs after every
+        wave, so the next wave's PnP sees polished poses."""
+        since_ba = 0
+        wave_cap = max(1, self.config.sfm.registration_wave_size)
+        while True:
+            with span("sfm.wave"):
+                cands = self._wave_candidates()
+                if not cands:
+                    break
+                # The ramp doubles but never exceeds 20% of the scene per
+                # wave: registering a large fraction of a small scene
+                # against stale geometry degrades it.
+                n_total = max(len(self.features), 1)
+                ramp = min(
+                    max(1, len(self.registered) - 1),
+                    max(1, int(np.ceil(0.2 * n_total))),
+                )
+                wave = cands[: min(wave_cap, ramp)]
+                accepted = self._register_wave(wave)
+                for i, _, _ in wave:
+                    if i not in self.registered:
+                        self.failed.add(i)
+                        print(f"[sfm] failed to register image {i}")
+                if accepted:
+                    n_new = self._triangulate_images(accepted)
+                    since_ba += len(accepted)
+                    print(f"[sfm] registered wave {accepted} "
+                          f"({len(self.registered)}/{len(self.features)}), +{n_new} points")
+                    self.bundle_adjustment_light()
+                    # Periodic full BA (points + poses): wave registration
+                    # defers the between-image geometry updates of a
+                    # sequential order, so drifted points must be re-solved,
+                    # not just re-posed.
+                    if since_ba >= self.config.sfm.ba_every_n_cameras:
+                        self.bundle_adjustment_full()
+                        since_ba = 0
+
     # -- stage 8: normalization + output ------------------------------------------
 
+    @traced("sfm.normalize")
     def _normalize_reconstruction(self):
         """Median-center; scale so that the 90th-percentile radius is
         normalize_scale. Applied to points and camera centers."""
@@ -1543,6 +1554,7 @@ class SfMPipeline:
             Cn = (C - center) * s
             self.poses[i] = (R, (-R @ Cn).astype(np.float32))
 
+    @traced("sfm.sweep")
     def drop_invalid_observations(self, max_px: float = 50.0):
         """Final sweep: drop observations that are behind their camera or
         grossly off (> max_px reprojection), then points left with < 2
@@ -1611,14 +1623,15 @@ class SfMPipeline:
         registration. Same return contract as reconstruct()."""
         from recon3d_tpu_torch.sfm.global_sfm import run_global_sfm
 
-        t0 = self._front_end(image_dir, max_images, image_set)
-        t_g = time.time()
-        run_global_sfm(self)
-        self.stats["global_solve_time"] = time.time() - t_g
-        self.stats["total_time"] = time.time() - t0
-        self.stats["num_points"] = len(self.points3d)
-        self.stats["num_cameras"] = len(self.registered)
-        self.stats["mean_reproj_px"] = self._mean_reproj_error()
+        with span("sfm.reconstruct_global") as root:
+            self._front_end(image_dir, max_images, image_set)
+            with span("sfm.global") as stage:
+                run_global_sfm(self)
+            self.stats["global_solve_time"] = stage.seconds
+            self.stats["num_points"] = len(self.points3d)
+            self.stats["num_cameras"] = len(self.registered)
+            self.stats["mean_reproj_px"] = self._mean_reproj_error()
+        self.stats["total_time"] = root.seconds
         print(
             f"[sfm] global: {len(self.points3d)} points, "
             f"{len(self.registered)}/{len(self.features)} cameras, "
@@ -1627,20 +1640,19 @@ class SfMPipeline:
         )
         return self._result()
 
-    def _front_end(self, image_dir, max_images, image_set) -> float:
+    def _front_end(self, image_dir, max_images, image_set) -> None:
         """Stages 1-3 of either reconstruction: take or load the images,
-        extract, match. Returns the start time."""
-        t0 = time.time()
-        if image_set is not None:
-            self.set_image_set(image_set)
-        elif image_dir is not None:
-            self.load_images(image_dir, max_images)
-        elif self.image_set is None:
-            raise ValueError("need image_dir or image_set")
-        self.stats["load_time"] = time.time() - t0
+        extract, match."""
+        with span("sfm.load") as stage:
+            if image_set is not None:
+                self.set_image_set(image_set)
+            elif image_dir is not None:
+                self.load_images(image_dir, max_images)
+            elif self.image_set is None:
+                raise ValueError("need image_dir or image_set")
+        self.stats["load_time"] = stage.seconds
         self.extract_features()
         self.match_image_pairs()
-        return t0
 
     def _result(self):
         """(points (P, 3) float32, colors (P, 3) uint8, poses {idx:

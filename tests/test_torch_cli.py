@@ -223,7 +223,9 @@ def test_cli_export_colmap_round_trips(fast_runs, sfm_scene):
 def test_cli_stats_json(fast_runs):
     """The port's --stats-json holds every key of the JAX CLI's (the
     pipeline's stats, stage_times_s, num_sparse_points) and names its
-    device; the sparse stage is the only one timed in a --fast run."""
+    device; the sparse stage is the only one timed in a --fast run. The
+    run's trace (`trace`) holds the stage's span and the SfM spans below
+    it, and its counters."""
     (_, s_j), (_, s_t) = fast_runs["jax"], fast_runs["torch"]
     assert set(s_j) <= set(s_t), set(s_j) - set(s_t)
     assert set(s_t["stage_times_s"]) == {"sparse_sfm"} == set(s_j["stage_times_s"])
@@ -231,6 +233,11 @@ def test_cli_stats_json(fast_runs):
     for k in ("load_time", "extract_time", "match_time", "init_time", "incremental_time",
               "final_ba_time", "total_time"):
         assert s_t[k] >= 0.0
+    trace = s_t["trace"]
+    assert trace["count"]["cli.run"] == trace["count"]["sparse_sfm"] == 1
+    assert trace["seconds"]["sparse_sfm"] == s_t["stage_times_s"]["sparse_sfm"]
+    assert trace["seconds"]["sfm.reconstruct"] == s_t["total_time"]
+    assert trace["counters"]["host.reads"] == trace["count"]["host.pull"] > 0
 
 
 @pytest.fixture(scope="module")
@@ -430,4 +437,8 @@ def test_cli_profile_writes_a_trace(colmap_scene, tmp_path, capsys):
     trace = json.loads((prof / TRACE_NAME).read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    # the run's spans, as CPU operations
+    spans = [e for e in trace["traceEvents"] if e.get("name") in ("cli.run", "sparse_sfm")]
+    assert {e["name"] for e in spans} == {"cli.run", "sparse_sfm"}
+    assert {e.get("cat") for e in spans} == {"cpu_op"}
     assert (tmp_path / "o" / "dense_stereo.ply").exists()

@@ -239,10 +239,21 @@ def check_ba(mesh, prob: tuple, device, exact: bool, max_iterations: int = 10) -
     from recon3d_tpu_torch.config import BundleConfig
     from recon3d_tpu_torch.sfm.bundle import bundle_adjust
 
+    from recon3d_tpu_torch.runtime.profiling import span
+
     K, poses, points, obs, kp_xy = prob
     cfg = BundleConfig(max_iterations=max_iterations)
-    sp, spts, ss = bundle_adjust(K, poses, points, obs, kp_xy, cfg, device=device)
-    mp, mpts, ms = bundle_adjust(K, poses, points, obs, kp_xy, cfg, device=device, mesh=mesh)
+
+    def solve(**kw):
+        # the seconds of the LM solve and the fetch, from the call's spans
+        with span("check.ba") as s:
+            poses_, points_, stats = bundle_adjust(K, poses, points, obs, kp_xy, cfg,
+                                                   device=device, **kw)
+        stats["solve_fetch_s"] = s.within("ba.solve") + s.within("ba.fetch")
+        return poses_, points_, stats
+
+    sp, spts, ss = solve()
+    mp, mpts, ms = solve(mesh=mesh)
     out = {"single": ss, "mesh": ms,
            "points_max_abs_err": float(np.abs(mpts - spts).max()),
            "R_max_abs_err": max(float(np.abs(mp[c][0] - sp[c][0]).max()) for c in sp),
