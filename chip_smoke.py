@@ -174,7 +174,7 @@ sys.modules["tests"] = _tests
 from recon3d_tpu_torch.cli import main as cli_main  # noqa: E402
 from recon3d_tpu_torch.io.colmap import load_colmap_text, save_colmap_text  # noqa: E402
 from recon3d_tpu_torch.io.ply import load_mesh_ply, load_ply  # noqa: E402
-from recon3d_tpu_torch.kernels import pointcloud, warp  # noqa: E402
+from recon3d_tpu_torch.kernels import bundle as bundle_kernels, pointcloud, warp  # noqa: E402
 from tests.render import render_views  # noqa: E402
 from tests.torch_scene import (  # noqa: E402
     match_graph_levels, pose_errors, sparse_from_depth, surface_gate, to_scene_frame)
@@ -368,6 +368,15 @@ K2_REPLACES = ("native/pointcloud.cpp:67 knn_mean_dist (the JAX package's host C
 K3_REPLACES = ("native/pointcloud.cpp:136 nearest_index (the JAX package's host C++; "
                "no Pallas kernel stands behind it)")
 K2_SOURCE = K3_SOURCE = "recon3d_tpu_torch/csrc/pointcloud.cu"
+BUNDLE_SOURCE = "recon3d_tpu_torch/csrc/bundle.cu"
+BUNDLE_REPLACES = ("recon3d_tpu/sfm/bundle.py:_lm_step (plain jnp: no Pallas kernel stands "
+                   "behind it)")
+# Launches of each kernel of csrc/bundle.cu in one LM step at
+# tests/torch_bundle_check.py's CG_ITERS (24): pass A once more for the
+# back-substitution.
+BUNDLE_LAUNCHES = {"linearize": 1, "point_setup": 1, "cam_setup": 1, "cg_init": 1,
+                   "point_pass": 25, "cam_pass": 24, "cg_update": 24, "point_update": 1,
+                   "cost": 1, "half_sum": 1}
 # Floating-point operations of one squared distance: 3 differences, 3
 # products, 2 sums (K2 and K3 alike).
 OPS_PER_PAIR = 8
@@ -460,6 +469,18 @@ def pointcloud_calls(st: dict, what: str) -> dict:
     if plain:
         raise AssertionError(f"{what}: the plain versions of K2/K3 ran on the card: {plain}")
     return calls
+
+
+def bundle_steps(counters: dict, launches: int, what: str) -> dict:
+    """The bundle adjustment kernels in one SfM run, their counts set to 0
+    just before it: kernels enqueued, LM steps and LM steps on the kernels
+    (the run's `ba.lm_steps` and `ba.kernel_steps` counters). Every LM step
+    on the card runs on the kernels, and some ran."""
+    out = {"launches": launches, "lm_steps": counters.get("ba.lm_steps", 0),
+           "kernel_steps": counters.get("ba.kernel_steps", 0)}
+    if not (out["lm_steps"] > 0 and out["kernel_steps"] == out["lm_steps"] and launches > 0):
+        raise AssertionError(f"{what}: LM steps not all on the bundle kernels: {out}")
+    return out
 
 
 def _special_points(W: int, H: int) -> torch.Tensor:
@@ -1249,6 +1270,7 @@ def cli_images(work: Path, scene: dict, card: str) -> dict:
         torch.cuda.synchronize()
         warp.counts.reset()
         pointcloud.reset_counts()
+        bundle_kernels.counts.reset()
         t0 = time.perf_counter()
         rc = cli_main(argv)
         torch.cuda.synchronize()
@@ -1257,9 +1279,11 @@ def cli_images(work: Path, scene: dict, card: str) -> dict:
         mesh.mesh_vertex_colors, filters.voxel_downsample = inner_colors, inner_voxel
     launches, plain_calls = warp.counts.kernel, warp.counts.plain
     searches = pointcloud.snapshot()
+    ba_launches = bundle_kernels.counts.kernel
     if rc != 0:
         raise AssertionError(f"cli_images: CLI returned {rc}")
     st = json.loads(stats_path.read_text())
+    ba = bundle_steps(st["trace"]["counters"], ba_launches, "cli_images")
     poses = read_poses(out / "poses.npz")
     errs = pose_errors(poses, scene)
     dense, dcols = load_ply(str(out / "dense_mvs.ply"))
@@ -1293,7 +1317,7 @@ def cli_images(work: Path, scene: dict, card: str) -> dict:
         "colmap_images": len(model.images), "colmap_points": len(model.points),
         "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1,
         "pointcloud_calls": pointcloud_calls(st, "cli_images"),
-        "k3_launches": searches["nearest_index"]["kernel"],
+        "k3_launches": searches["nearest_index"]["kernel"], "bundle_kernels": ba,
         "mesh_vertices": len(captured.get("mesh_vertices", ())),
         "fused_points": len(captured.get("fused_cloud", ())),
     }
@@ -1684,6 +1708,87 @@ def pointcloud_against(root: Path, raw, k: int, ref, query) -> list:
     return rows
 
 
+def bundle_phase(card: str) -> dict:
+    """The bundle adjustment kernels (csrc/bundle.cu) against the plain
+    version at DTU's size (tests/torch_bundle_check.py): one LM step's
+    costs and step against the plain version in float32 and in float64
+    (the step within 2e-3 of float64's), two runs bit for bit, one step's
+    launches (BUNDLE_LAUNCHES); each kernel's device time (torch.profiler,
+    null with a reason where it saw no launch) against its byte bound on
+    the live rows, the step's and the plain version's times (CUDA events:
+    the device's back to back, and as the host launches them), and the
+    plain version's two CG passes."""
+    from recon3d_tpu_torch.ops.linalg import einsum_hp
+    from recon3d_tpu_torch.sfm import bundle
+    from tests import torch_bundle_check as bc
+
+    dev = torch.device("cuda")
+    table = bc.dtu_table(dev)
+    damping = torch.full((), bc.DAMPING, device=dev)
+
+    def step():
+        return bundle._lm_step(table, damping, bc.DELTA, bc.CG_ITERS)
+
+    def plain():
+        return bundle._lm_step_plain(table, damping, bc.DELTA, bc.CG_ITERS)
+
+    got, c0, c1 = step()
+    bundle_kernels.counts.reset()
+    again = step()
+    launches = bundle_kernels.counts.kernel
+    ref, c0_ref, c1_ref = plain()
+    exact, _, c1_exact = bundle._lm_step_plain(bc.float64(table), damping.double(), bc.DELTA,
+                                               bc.CG_ITERS)
+    rows, P, C = int(table.obs_w.sum()), table.X0.shape[0], table.R0.shape[0]
+    out = {"rows": rows, "points": P, "cameras": C, "capacity": table.obs_cam.shape[0],
+           "launches_a_step": launches,
+           "cost0": float(c0), "cost0_plain": float(c0_ref), "cost1": float(c1),
+           "cost1_plain": float(c1_ref), "cost1_float64": float(c1_exact),
+           "xi_rel_float64": bc.rel(got.xi, exact.xi), "dX_rel_float64": bc.rel(got.dX, exact.dX),
+           "plain_xi_rel_float64": bc.rel(ref.xi, exact.xi),
+           "plain_dX_rel_float64": bc.rel(ref.dX, exact.dX)}
+    if not (torch.equal(got.xi, again[0].xi) and torch.equal(got.dX, again[0].dX)
+            and torch.equal(c1, again[2])):
+        raise AssertionError("bundle kernels: two runs of one step differ")
+    if (abs(out["cost0"] - out["cost0_plain"]) > 1e-5 * out["cost0_plain"]
+            or max(out["xi_rel_float64"], out["dX_rel_float64"]) > 2e-3
+            or launches != sum(BUNDLE_LAUNCHES.values())):
+        raise AssertionError(f"bundle kernels against the plain version: {out}")
+    per_launch = device_ms_by_kernel(step, [f"{name}_kernel(" for name in BUNDLE_LAUNCHES], 5)
+    kernels = {}
+    for name, nbytes in bc.kernel_bytes(rows, P, C).items():
+        ms = per_launch[f"{name}_kernel("]
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        kernels[name] = {"launches_a_step": BUNDLE_LAUNCHES[name], "bytes": nbytes,
+                         "bound_us": bound_us}
+        if ms is None:
+            kernels[name]["us"] = None
+            kernels[name]["why_null"] = "the profiler saw no launch of it"
+        else:
+            kernels[name].update(us=ms * 1e3, share_of_bound=bound_us / (ms * 1e3))
+
+    _, Jc, Jp = bundle._per_obs_jacobians(table, torch.ones_like(table.obs_w))
+    x = torch.randn((C, 6), device=dev)
+    v = torch.randn((P, 3), device=dev)
+
+    def pass_a():       # the plain version's E^T x, summed into points
+        u = einsum_hp("oij,oj->oi", Jc, x[table.obs_cam])
+        return bundle._reduce_pt(table, einsum_hp("oij,oi->oj", Jp, u))
+
+    def pass_b():       # its camera block and coupling, summed into cameras
+        u = einsum_hp("oij,oj->oi", Jc, x[table.obs_cam])
+        w = einsum_hp("oij,oj->oi", Jp, v[table.obs_pt])
+        return (bundle._reduce_cam(table, einsum_hp("oij,oi->oj", Jc, u))
+                - bundle._reduce_cam(table, einsum_hp("oij,oi->oj", Jc, w)))
+
+    out.update(kernels=kernels, step_device_ms=cuda_ms(step, 10),
+               step_ms=cuda_ms(step, 10, prefill=False),
+               plain_step_ms=cuda_ms(plain, 5, prefill=False),
+               plain_pass_ms={"point_pass": cuda_ms(pass_a, 20), "cam_pass": cuda_ms(pass_b, 20)})
+    print(json.dumps({"phase": "bundle", "card": card, **out}), flush=True)
+    return out
+
+
 def checkpoint_phase(work: Path, card: str) -> dict:
     """`IMAGES --mvs --calibration K --checkpoint-dir` on the north-star
     PNGs: from scratch (SfM, every depth map saved), after the second half
@@ -1928,11 +2033,13 @@ def check_k1_shapes(by_stage: dict, shapes: list, what: str) -> None:
 
 def cli_sparse_run(work: Path, scene: dict, card: str, name: str, flags) -> dict:
     """The CLI `IMAGES <flags> --mvs --calibration K --stats-json`, K1's
-    counts set to 0 just before and read just after: the sparse result
-    against the true poses and the dense cloud in the scene's frame."""
+    and the bundle kernels' counts set to 0 just before and read just
+    after: the sparse result against the true poses and the dense cloud in
+    the scene's frame."""
     out, stats_path = work / name, work / f"{name}.json"
     torch.cuda.synchronize()
     warp.counts.reset()
+    bundle_kernels.counts.reset()
     t0 = time.perf_counter()
     rc = cli_main([str(work / "images"), *flags, "--mvs", "--calibration",
                    str(work / "calibration.npz"), "--output", str(out),
@@ -1940,9 +2047,11 @@ def cli_sparse_run(work: Path, scene: dict, card: str, name: str, flags) -> dict
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = warp.counts.kernel, warp.counts.plain
+    ba_launches = bundle_kernels.counts.kernel
     if rc != 0:
         raise AssertionError(f"{name}: CLI returned {rc}")
     st = json.loads(stats_path.read_text())
+    ba = bundle_steps(st["trace"]["counters"], ba_launches, name)
     poses = read_poses(out / "poses.npz")
     dense, dcols = load_ply(str(out / "dense_mvs.ply"))
     if dcols is None or dcols.shape != dense.shape or not np.isfinite(dense).all():
@@ -1965,7 +2074,7 @@ def cli_sparse_run(work: Path, scene: dict, card: str, name: str, flags) -> dict
                                                   "final_ba_time") if k in st},
             "dense_points": len(dense), "dense_median": med, "dense_share": share,
             "k1_launches": launches, "k1_plain_calls": plain_calls, "k1_by_stage": k1,
-            "pointcloud_calls": pointcloud_calls(st, name)}
+            "pointcloud_calls": pointcloud_calls(st, name), "bundle_kernels": ba}
 
 
 def global_sfm_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
@@ -1974,6 +2083,7 @@ def global_sfm_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
     a device sync), the CLI's `IMAGES --global-sfm --mvs` (the dense cloud
     at GLOBAL_DENSE_GATE, K1 by stage), and the global solve's stages once
     more under a device-only profiler."""
+    from recon3d_tpu_torch.runtime.profiling import finished
     from recon3d_tpu_torch.sfm import global_sfm
 
     def run(instrument):
@@ -1982,19 +2092,24 @@ def global_sfm_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
                            + [(pipe, m) for m in GLOBAL_METHODS])
         try:
             torch.cuda.synchronize()
+            bundle_kernels.counts.reset()
             t0 = time.perf_counter()
             points, colors, poses = pipe.reconstruct_global(str(work / "images"))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
             probe.restore()
-        return pipe, probe, wall, points, colors, poses
+        root = finished()[-1]
+        if root["name"] != "sfm.reconstruct_global":
+            raise AssertionError(f"global_sfm: the last root trace is {root['name']}")
+        ba = bundle_steps(root["counters"], bundle_kernels.counts.kernel, "global_sfm")
+        return pipe, probe, wall, points, colors, poses, ba
 
     cold_pipe, _, cold_wall, *_ = run(_StageClock)
     cold = {k: cold_pipe.stats[k] for k in ("num_cameras", "num_points", "mean_reproj_px",
                                             "global_solve_time", "total_time")}
     del cold_pipe
-    pipe, clock, wall, points, colors, poses = run(_StageClock)
+    pipe, clock, wall, points, colors, poses, ba = run(_StageClock)
     st = pipe.stats
     errs = pose_errors(pipe.poses, scene)
     report = {
@@ -2006,7 +2121,7 @@ def global_sfm_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
         "seconds": {k: st[k] for k in ("load_time", "extract_time", "match_time",
                                        "global_solve_time", "total_time")},
         "cold": cold, "stage_seconds_synced": clock.seconds, "stage_calls": clock.calls,
-        "gate": GLOBAL_SFM_GATE,
+        "gate": GLOBAL_SFM_GATE, "bundle_kernels": ba,
     }
     print(json.dumps(report), flush=True)
     if not (points.ndim == 2 and points.shape[1] == 3 and np.isfinite(points).all()
@@ -2973,9 +3088,10 @@ def main() -> int:
     from recon3d_tpu_torch.runtime import native
 
     t_build = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [(name, pool.submit(fn)) for name, fn in (
-            ("nvcc", warp.build), ("nvcc", pointcloud.build), ("g++", native.build))]
+            ("nvcc", warp.build), ("nvcc", pointcloud.build), ("nvcc", bundle_kernels.build),
+            ("g++", native.build))]
         for tool, future in builds:
             lib_path, build_s, log = future.result()
             print(f"[build] {lib_path.name}: {build_s:.2f} s with {tool}"
@@ -3012,6 +3128,7 @@ def main() -> int:
         searches = phase("pointcloud", pointcloud_phase, images, dsift, card,
                          None if args.against is None else args.against.resolve())
         del images["captured"], dsift["captured"]
+        ba = phase("bundle", bundle_phase, card)
         ckpt = phase("checkpoint", checkpoint_phase, work, card)
         gsfm = phase("global_sfm", global_sfm_phase, work, scene, card, shapes)
         neural = phase("neural", neural_phase, work, scene, card, shapes)
@@ -3125,6 +3242,18 @@ def main() -> int:
             "dense_sift_run_calls": dsift["pointcloud_calls"][name],
             "cli_images_run_calls": images["pointcloud_calls"][name],
             "other_runs_calls": later})
+    # The bundle adjustment kernels: the launches and LM steps of each SfM
+    # run on the main paths (every LM step on the kernels), and one step at
+    # DTU's size against the plain version.
+    kernels.append({
+        "name": "bundle_lm_step", "route": "cuda", "source": BUNDLE_SOURCE,
+        "replaces": BUNDLE_REPLACES, "max_abs_err": None,
+        "cli_images_run": images["bundle_kernels"], "global_sfm_run": gsfm["bundle_kernels"],
+        "global_sfm_cli_run": gsfm["cli"]["bundle_kernels"],
+        "neural_cli_run": neural["cli"]["bundle_kernels"],
+        "ms": ba["step_ms"], "device_ms": ba["step_device_ms"], "plain_ms": ba["plain_step_ms"],
+        "bound_ms": sum(k["bound_us"] * k["launches_a_step"] for k in ba["kernels"].values()) / 1e3,
+        "bound_by": "bytes", "library_ms": None, "measured": ba})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -387,10 +387,12 @@ def make_mesh(
     world = dp * mp
     backend = "nccl" if dev.type == "cuda" and not share_device else "gloo"
     if dev.type == "cuda":
-        # build K1 once, before the ranks start: they load the same library
-        from recon3d_tpu_torch.kernels.warp import build
+        # build K1 and the bundle kernels once, before the ranks start: they
+        # load the same libraries
+        from recon3d_tpu_torch.kernels import bundle, warp
 
-        build()
+        warp.build()
+        bundle.build()
         torch.cuda.set_device(_rank_device(dev, 0, share_device))
     for k, v in _loopback_env().items():
         os.environ.setdefault(k, v)

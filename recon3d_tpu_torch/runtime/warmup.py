@@ -6,7 +6,8 @@ alone, both land inside whatever stage touches the card first.
 
 warm_device_async(device) moves them off the critical path: a daemon
 thread creates the context, loads K1's library through kernels/warp.py and
-makes one host->device and one device->host copy, while the caller does
+the bundle adjustment kernels' through kernels/bundle.py, and makes one
+host->device and one device->host copy, while the caller does
 its host-side work. On the CPU it makes one tiny tensor op.
 
 PyTorch creates cuBLAS and cuSOLVER handles per thread, so this thread
@@ -28,10 +29,11 @@ def _warm(device: str) -> None:
 
         dev = torch.device(device)
         if dev.type == "cuda":
-            from recon3d_tpu_torch.kernels import warp
+            from recon3d_tpu_torch.kernels import bundle, warp
 
             torch.cuda.init()
             warp._library()
+            bundle._library()
         # one h2d + one d2h: float() waits for the result
         float(torch.ones(1).to(dev) + 1.0)
     except Exception:

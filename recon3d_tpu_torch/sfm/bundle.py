@@ -7,12 +7,20 @@ PyTorch port of the single-device part of recon3d_tpu/sfm/bundle.py:
   - point blocks eliminated analytically (batched closed-form 3x3
     inverses) and preconditioned CG on the Schur-reduced camera system
     ("Bundle Adjustment in the Large", reduced camera system),
-  - every J/J^T contraction is gathers + einsums + contiguous cumsum
-    segment reductions, whose order of summation is fixed on any device
-    (a scatter-add's is not),
+  - every J/J^T contraction is summed over contiguous segments of rows (a
+    point's rows, or a camera's after a sort), whose order of summation is
+    fixed on any device (a scatter-add's is not),
   - Huber robustification via IRLS weights,
   - cameras parameterized as se(3) increments on the linearization point,
   - gauge fixed by freezing camera 0 (and the scale by damping).
+
+An LM step runs on the table's device: a table on the card takes the
+hand-written kernels of csrc/bundle.cu (`_lm_step_kernels`; each product
+formed in registers and summed by walking only its segment's rows), any
+other the plain version (`_lm_step_plain`: gathers, einsums and cumsum
+segment reductions, the kernels' arithmetic written in torch ops). A step
+on the kernels counts `ba.kernel_steps`; `kernels/bundle.py::counts`
+counts their launches.
 
 Everything is fixed-shape: observations are padded to capacity with
 weights. Two entry points: `bundle_adjust_log`, over the pipeline's
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from recon3d_tpu_torch.config import BundleConfig
+from recon3d_tpu_torch.kernels import bundle as bundle_kernels
 from recon3d_tpu_torch.ops.lie import se3_exp
 from recon3d_tpu_torch.ops.linalg import einsum_hp, matmul_hp
 from recon3d_tpu_torch.ops.pnp import pinhole_jacobian, twist_jacobian
@@ -56,10 +65,12 @@ class BAData(NamedTuple):
     obs_pt: torch.Tensor   # (O,) int64, sorted ascending over the real rows
     obs_xy: torch.Tensor   # (O, 2)
     obs_w: torch.Tensor    # (O,) 0/1 validity
-    # Segment-reduction indices: every J^T contraction is a cumsum and
-    # boundary differences over contiguous segments. Points are contiguous
-    # because the observation table is point-major; cameras get a sort
-    # permutation.
+    # Segment-reduction indices: every J^T contraction sums contiguous
+    # segments of rows (the plain version by a cumsum and boundary
+    # differences). Points are contiguous because the observation table is
+    # point-major, and row o of point p's segment has obs_pt[o] == p;
+    # cameras get a sort permutation, whose segments hold only rows inside
+    # point segments.
     pt_start: torch.Tensor   # (P,) int64, [start, end) rows of point p
     pt_end: torch.Tensor     # (P,) int64
     cam_perm: torch.Tensor   # (O,) int64, permutation sorting rows by camera
@@ -190,15 +201,28 @@ def _lm_step(
     always pass zeros, and the blocks here are written out at zero.)
 
       - the Jacobian is materialized once per LM step as per-observation
-        (2, 6)/(2, 3) blocks; every Schur matvec is gathers + einsums +
-        contiguous segment reductions,
+        (2, 6)/(2, 3) blocks; every Schur matvec sums per-observation
+        products over contiguous segments of rows,
       - the CG space drops from 6C+3P to 6C (P >> C in SfM) and its
         conditioning improves enough that the same iteration budget
         converges,
       - motion_only is the same program with C^{-1} = 0 (points frozen),
       - with a mesh, `data` is this rank's slice of the observations and
         every reduction over observations is summed over the mesh's 'data'
-        axis; the camera-sized CG vectors are replicated."""
+        axis; the camera-sized CG vectors are replicated.
+
+    A table on the card runs `_lm_step_kernels`, any other device the
+    plain version, `_lm_step_plain`."""
+    if data.X0.device.type == "cuda":
+        with torch.cuda.device(data.X0.device):
+            return _lm_step_kernels(data, damping, delta, cg_iters, motion_only, mesh)
+    return _lm_step_plain(data, damping, delta, cg_iters, motion_only, mesh)
+
+
+def _lm_step_plain(data: BAData, damping, delta, cg_iters: int = 40, motion_only: bool = False,
+                   mesh=None):
+    """The plain version of `_lm_step` in torch ops, on any device: gathers,
+    einsums and cumsum segment reductions over the whole table."""
     C = data.R0.shape[0]
     P = data.X0.shape[0]
     dt, dev = data.X0.dtype, data.X0.device
@@ -292,6 +316,44 @@ def _lm_step(
     return cand, cost0, cost1
 
 
+def _lm_step_kernels(data: BAData, damping, delta, cg_iters: int, motion_only: bool, mesh=None):
+    """`_lm_step` on the card: the same arithmetic in the kernels of
+    csrc/bundle.cu, launched on the current stream with no host read. With
+    a mesh, each partial sum over this rank's rows (the points' and the
+    cameras' setup sums, each CG iteration's point sums s and camera sums
+    y, the back-substitution's s and the candidate's residuals) is added
+    over the 'data' axis before the next launch reads it."""
+    if not isinstance(damping, torch.Tensor):
+        damping = torch.full((), float(damping), dtype=torch.float32, device=data.X0.device)
+    step = bundle_kernels.Step(data, damping, delta, motion_only)
+
+    def reduce(t):
+        if mesh is not None:
+            mesh.all_reduce_(t)
+
+    step.linearize()
+    reduce(step.psum)
+    step.point_setup()
+    step.cam_setup()
+    reduce(step.csum)
+    step.cg_init()
+    for _ in range(cg_iters):
+        step.point_pass(step.p)
+        reduce(step.s)
+        step.cam_pass()
+        reduce(step.y)
+        step.cg_update()
+    step.point_pass(step.x)          # back-substitution: dX = Cinv (-g_p - E^T x)
+    reduce(step.s)
+    step.point_update()
+    R, t = _apply_increment(step.x, data.R0, data.t0)
+    step.cost(R, t)
+    reduce(step.rr)
+    step.half_sum()
+    count("ba.kernel_steps")
+    return BAParams(xi=step.x, dX=step.dX), step.scal[0], step.scal[2]
+
+
 def _lm_loop(
     data: BAData,
     damping0,
@@ -306,7 +368,7 @@ def _lm_loop(
     max_iters; a run of rejections ends through the damping bound. With a
     mesh (see _lm_step) every rank runs this loop on its slice."""
     R0, t0, X0 = data.R0, data.t0, data.X0
-    damping = torch.as_tensor(damping0, dtype=X0.dtype, device=X0.device)
+    damping = torch.full((), damping0, dtype=X0.dtype, device=X0.device)
     it = 0
     while it < max_iters:
         with span("ba.lm_step"):

@@ -212,9 +212,10 @@ from recon3d_tpu_torch.runtime import *
 from recon3d_tpu_torch.sfm import *
 import recon3d_tpu_torch.serve, recon3d_tpu_torch.runtime.warmup
 import recon3d_tpu_torch.gui.app, recon3d_tpu_torch.tools.run_colmap
-from recon3d_tpu_torch.kernels import warp
+from recon3d_tpu_torch.kernels import bundle, warp
 assert sorted(recon3d_tpu_torch.__all__) == sorted(n for n in dir() if n in recon3d_tpu_torch.__all__)
 print("COUNTS", warp.counts.kernel, warp.counts.plain, warp._lib is None)
+print("BUNDLE", bundle.counts.kernel, bundle._lib is None)
 print("JAX", sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "recon3d_tpu")))
 """
 
@@ -233,4 +234,5 @@ def test_import_builds_no_kernel():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "COUNTS 0 0 True" in r.stdout and "JAX []" in r.stdout, r.stdout
+    assert "BUNDLE 0 True" in r.stdout, r.stdout
     assert listing() == before

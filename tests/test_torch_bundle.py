@@ -268,6 +268,28 @@ def test_ba_robust_to_outliers(rng):
         assert rotation_angle_deg(new_poses[i][0], scene["Rs"][i]) < 0.5
 
 
+def test_cpu_table_takes_the_plain_version_and_builds_no_kernel(rng, monkeypatch):
+    """A bundle adjustment on the CPU runs every LM step on the plain
+    version: csrc/bundle.cu is neither built nor loaded, no kernel is
+    launched and no `ba.kernel_steps` is counted."""
+    from recon3d_tpu_torch.kernels import bundle as bundle_kernels
+    from recon3d_tpu_torch.runtime.profiling import span
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("csrc/bundle.cu built for a CPU table")
+
+    monkeypatch.setattr(bundle_kernels, "build", refuse)
+    built = sorted(bundle_kernels.SOURCE.parents[1].joinpath("_build").glob("libbundle_*"))
+    k0 = bundle_kernels.counts.kernel
+    scene, poses, points, log, kp_xy = _perturbed_problem(rng, n_cams=3, n_points=40)
+    with span("test.ba") as sp:
+        _, _, stats = _port(scene, poses, points, log, kp_xy, BundleConfig(max_iterations=3))
+    steps = sp.trace.counters["ba.lm_steps"]
+    assert stats["iterations"] >= 1 and steps >= 1 and bundle_kernels.counts.kernel == k0
+    assert "ba.kernel_steps" not in sp.trace.counters and bundle_kernels._lib is None
+    assert sorted(bundle_kernels.SOURCE.parents[1].joinpath("_build").glob("libbundle_*")) == built
+
+
 def test_ba_small_problems_return_unchanged(rng):
     scene, poses, points, log, kp_xy = _perturbed_problem(rng, n_cams=2, n_points=6)
     new_poses, new_points, stats = _port(scene, poses, points, log, kp_xy, BundleConfig())
