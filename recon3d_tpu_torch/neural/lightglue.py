@@ -138,6 +138,13 @@ class LightGlueNet(nn.Module):
         self.matchability = nn.Linear(dim, 1)
 
     def forward(self, desc0, desc1, xy0n, xy1n, valid0, valid1):
+        z, m0, m1 = self.scores(desc0, desc1, xy0n, xy1n, valid0, valid1)
+        return log_double_softmax(z, m0, m1), torch.sigmoid(m0), torch.sigmoid(m1)
+
+    def scores(self, desc0, desc1, xy0n, xy1n, valid0, valid1):
+        """The masked similarity z (B, N0, N1) (padded rows and columns
+        -1e9) and the matchability logits m0 (B, N0), m1 (B, N1) that
+        `forward` turns into the assignment."""
         x0 = self.input_proj(desc0)
         x1 = self.input_proj(desc1)
         rot0 = rotary_embed(xy0n, self.rotary_freqs)
@@ -151,12 +158,17 @@ class LightGlueNet(nn.Module):
         m0 = self.matchability(x0)[..., 0]
         m1 = self.matchability(x1)[..., 0]
 
-        # sigmoid-log-double-softmax (LightGlue eq. 8)
         z = (sim + torch.where(valid0, 0.0, -1e9)[..., :, None]
              + torch.where(valid1, 0.0, -1e9)[..., None, :])
-        log_assign = (torch.log_softmax(z, dim=-1) + torch.log_softmax(z, dim=-2)
-                      + F.logsigmoid(m0)[..., :, None] + F.logsigmoid(m1)[..., None, :])
-        return log_assign, torch.sigmoid(m0), torch.sigmoid(m1)
+        return z, m0, m1
+
+
+def log_double_softmax(z: torch.Tensor, m0: torch.Tensor, m1: torch.Tensor) -> torch.Tensor:
+    """Sigmoid-log-double-softmax (LightGlue eq. 8) of the masked similarity
+    z (..., N0, N1) and the matchability logits: the log-assignment without
+    its dustbins, which are logsigmoid(-m0) and logsigmoid(-m1)."""
+    return (torch.log_softmax(z, dim=-1) + torch.log_softmax(z, dim=-2)
+            + F.logsigmoid(m0)[..., :, None] + F.logsigmoid(m1)[..., None, :])
 
 
 class LightGlueMatches(NamedTuple):

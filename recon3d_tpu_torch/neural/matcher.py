@@ -18,6 +18,15 @@ a data file, not an import), and matcher="auto" resolves to mutual-NN
 descriptor matching; matcher="lightglue" loads the bundled LightGlue
 checkpoint. With a mesh (parallel/mesh.py), match_pairs_batched shards
 each chunk's pair rows over its 'data' axis, as the SIFT front end does.
+
+Spans and counters (runtime/profiling.py): `neural.superpoint` an image
+and the counter `neural.images`; `neural.match` all of
+match_pairs_batched, up to its host read of the results, and in it, a
+chunk at a time, `neural.lightglue` (the network, launched) and
+`neural.verify` (F-RANSAC of both verdicts); the counters
+`neural.lightglue_pairs` (pairs this process ran through LightGlue) and
+`neural.nn_kept_pairs` (pairs whose mutual-NN verdict won over
+LightGlue's). Every device->host read goes through `pull`.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from recon3d_tpu_torch.convert import flax_to_state_dict, read_params_npz
 from recon3d_tpu_torch.neural.lightglue import (
     LightGlueNet,
     extract_matches,
+    log_double_softmax,
     normalize_keypoints,
 )
 from recon3d_tpu_torch.neural.superpoint import (
@@ -47,6 +57,7 @@ from recon3d_tpu_torch.ops.estimation import estimate_fundamental_ransac
 from recon3d_tpu_torch.ops.match import MatchResult, match_descriptors
 from recon3d_tpu_torch.ops.ransac import indices_from_uniform
 from recon3d_tpu_torch.runtime.device import resolve_device
+from recon3d_tpu_torch.runtime.profiling import count, pull, span
 
 # The JAX package's bundled checkpoints, read in place.
 PRETRAINED_DIR = Path(__file__).resolve().parents[2] / "recon3d_tpu" / "neural" / "pretrained"
@@ -94,6 +105,13 @@ class NeuralMatcher:
         m = self.config.matcher
         has_lg = bool(self.config.lightglue_weights)
         self.matcher_kind = m if m in ("lightglue", "nn") else ("lightglue" if has_lg else "nn")
+        # Pairs (i, j) of match_pairs_batched whose LightGlue log-assignment
+        # and matches (idx2, before the mutual-NN fallback chooses) are kept
+        # on the device in kept_assignment and kept_matches, for a caller
+        # that checks the network's output; with none named nothing is kept.
+        self.keep_assignment: Sequence[Tuple[int, int]] = ()
+        self.kept_assignment: Dict[Tuple[int, int], torch.Tensor] = {}
+        self.kept_matches: Dict[Tuple[int, int], torch.Tensor] = {}
 
     # -- parameters ---------------------------------------------------------
 
@@ -142,18 +160,22 @@ class NeuralMatcher:
         """image: (H, W) grayscale float32 in [0, 1] (numpy or tensor) ->
         padded NeuralFeatures on the matcher's device."""
         self._ensure_params()
-        img = image if torch.is_tensor(image) else torch.from_numpy(np.asarray(image, np.float32))
-        img = img.to(self.device, torch.float32)
-        h8 = (img.shape[0] // 8) * 8
-        w8 = (img.shape[1] // 8) * 8
-        logits, desc = self.sp(img[:h8, :w8][None, ..., None])
-        cfg = self.config
-        return detect_keypoints(
-            scores_from_logits(logits)[0], desc[0],
-            max_keypoints=cfg.max_keypoints,
-            detection_threshold=cfg.detection_threshold,
-            nms_radius=cfg.nms_radius,
-        )
+        with span("neural.superpoint"):
+            img = image if torch.is_tensor(image) else torch.from_numpy(
+                np.asarray(image, np.float32))
+            img = img.to(self.device, torch.float32)
+            h8 = (img.shape[0] // 8) * 8
+            w8 = (img.shape[1] // 8) * 8
+            logits, desc = self.sp(img[:h8, :w8][None, ..., None])
+            cfg = self.config
+            feats = detect_keypoints(
+                scores_from_logits(logits)[0], desc[0],
+                max_keypoints=cfg.max_keypoints,
+                detection_threshold=cfg.detection_threshold,
+                nms_radius=cfg.nms_radius,
+            )
+        count("neural.images")
+        return feats
 
     # -- matching ------------------------------------------------------------
 
@@ -161,12 +183,25 @@ class NeuralMatcher:
         return match_descriptors(d1, d2, v1, v2, ratio=self.config.nn_ratio)
 
     @torch.no_grad()
-    def _lightglue(self, desc0, desc1, xy0, xy1, v0, v1, hw) -> MatchResult:
-        """LightGlue matches of a batch of pairs (B, N, ...)."""
-        log_assign, _, _ = self.lg(desc0, desc1, normalize_keypoints(xy0, hw),
+    def _lightglue(self, desc0, desc1, xy0, xy1, v0, v1, hw, keep=()) -> MatchResult:
+        """LightGlue matches of a batch of pairs (B, N, ...). keep: (row,
+        pair) of the batch rows whose log-assignment goes to
+        kept_assignment[pair]: (N0 + 1, N1 + 1), the dustbins in the last
+        column and row as in LightGlue's published output, and whose idx2
+        (N0,) goes to kept_matches[pair]."""
+        z, m0, m1 = self.lg.scores(desc0, desc1, normalize_keypoints(xy0, hw),
                                    normalize_keypoints(xy1, hw), v0, v1)
+        log_assign = log_double_softmax(z, m0, m1)
         m = extract_matches(log_assign, v0, v1,
                             threshold=self.config.lightglue_match_threshold)
+        for row, pair in keep:
+            full = torch.zeros((log_assign.shape[-2] + 1, log_assign.shape[-1] + 1),
+                               dtype=log_assign.dtype, device=log_assign.device)
+            full[:-1, :-1] = log_assign[row]
+            full[:-1, -1] = torch.nn.functional.logsigmoid(-m0[row])
+            full[-1, :-1] = torch.nn.functional.logsigmoid(-m1[row])
+            self.kept_assignment[pair] = full
+            self.kept_matches[pair] = m.idx2[row]
         rows = torch.arange(m.idx2.shape[-1], device=m.idx2.device)
         return MatchResult(idx1=rows.expand(m.idx2.shape), idx2=m.idx2,
                            distance=1.0 - m.score, mask=m.mask)
@@ -189,10 +224,10 @@ class NeuralMatcher:
 
         def run(m):
             _, inl, F, n_inl, n_raw = self._verify(m, f1.xy, f2.xy, generator)
-            enough = int(n_raw) >= min_matches
+            enough = int(pull(n_raw)) >= min_matches
             out = MatchResult(idx1=m.idx1, idx2=m.idx2, distance=m.distance,
                               mask=inl if enough else torch.zeros_like(inl))
-            return out, F, (int(n_inl) if enough else 0)
+            return out, F, (int(pull(n_inl)) if enough else 0)
 
         best = run(self.match(f1, f2))
         if (self.matcher_kind == "lightglue" and self.config.lightglue_nn_fallback
@@ -254,36 +289,41 @@ class NeuralMatcher:
         bit for bit, on a GPU a smaller batch may round otherwise
         (ROADMAP.md, section 3)."""
         self._ensure_params()
-        hw = tuple(hw or (1024, 1024))
-        dev = self.device
-        desc = torch.stack([f.desc for f in features]).to(dev)
-        xy = torch.stack([f.xy for f in features]).to(dev)
-        valid = torch.stack([f.valid for f in features]).to(dev)
-        if mesh is not None:
-            n_data = mesh.shape["data"]
-            chunk = max(chunk, n_data) // n_data * n_data
-            idx2, inl, F, n_inl, n_raw = self._match_sharded(
-                mesh, desc, xy, valid, pairs, generator, chunk, hw, sample_indices)
-        else:
-            idx2, inl, F, n_inl, n_raw = (
-                torch.cat(field, dim=0).cpu().numpy() for field in zip(*self._match_chunks(
-                    desc, xy, valid, pairs, generator, chunk, hw, sample_indices)))
-        res = []
-        for r, (i, j) in enumerate(pairs):
-            sel = np.flatnonzero(inl[r])
-            res.append((i, j, sel, idx2[r][sel], F[r], int(n_inl[r]), int(n_raw[r])))
+        with span("neural.match"):
+            hw = tuple(hw or (1024, 1024))
+            dev = self.device
+            desc = torch.stack([f.desc for f in features]).to(dev)
+            xy = torch.stack([f.xy for f in features]).to(dev)
+            valid = torch.stack([f.valid for f in features]).to(dev)
+            if mesh is not None:
+                n_data = mesh.shape["data"]
+                chunk = max(chunk, n_data) // n_data * n_data
+                idx2, inl, F, n_inl, n_raw, nn_won = self._match_sharded(
+                    mesh, desc, xy, valid, pairs, generator, chunk, hw, sample_indices)
+            else:
+                idx2, inl, F, n_inl, n_raw, nn_won = (
+                    pull(torch.cat(field, dim=0)).numpy() for field in zip(*self._match_chunks(
+                        desc, xy, valid, pairs, generator, chunk, hw, sample_indices)))
+            count("neural.nn_kept_pairs", int(nn_won.sum()))
+            res = []
+            for r, (i, j) in enumerate(pairs):
+                sel = np.flatnonzero(inl[r])
+                res.append((i, j, sel, idx2[r][sel], F[r], int(n_inl[r]), int(n_raw[r])))
         return res
 
     def _match_chunks(self, desc, xy, valid, pairs, generator, chunk, hw, sample_indices,
                       shard=None):
-        """The chunks' (idx2, inliers, F, num_inliers, num_raw) on the device.
-        shard: (d, n_data) to run only the rows of data index d of each
-        chunk (an empty chunk part still draws, as every rank draws)."""
+        """The chunks' (idx2, inliers, F, num_inliers, num_raw, nn_won) on the
+        device, nn_won marking the pairs whose mutual-NN verdict replaced
+        LightGlue's. shard: (d, n_data) to run only the rows of data index d
+        of each chunk (an empty chunk part still draws, as every rank
+        draws)."""
         from recon3d_tpu_torch.parallel.mesh import shard_rows
 
         dev = desc.device
         kind = self.matcher_kind
         fallback = kind == "lightglue" and self.config.lightglue_nn_fallback
+        keep = {(int(a), int(b)) for a, b in self.keep_assignment}
         chunk_out = []
         for c, c0 in enumerate(range(0, len(pairs), chunk)):
             batch = np.asarray(pairs[c0: c0 + chunk], np.int64).reshape(-1, 2)
@@ -304,19 +344,28 @@ class NeuralMatcher:
             m_nn = None
             if kind == "nn" or fallback:
                 m_nn = self._nn(desc[pi], desc[pj], valid[pi], valid[pj])
+            none_won = torch.zeros(hi - lo, dtype=torch.bool, device=dev)
             if kind == "nn":
-                chunk_out.append(self._verify(m_nn, xy[pi], xy[pj], generator, draws.get("nn"),
-                                              rows))
+                with span("neural.verify"):
+                    out = self._verify(m_nn, xy[pi], xy[pj], generator, draws.get("nn"), rows)
+                chunk_out.append(out + (none_won,))
                 continue
-            m = self._lightglue(desc[pi], desc[pj], xy[pi], xy[pj], valid[pi], valid[pj], hw)
-            out = self._verify(m, xy[pi], xy[pj], generator, draws.get("lightglue"), rows)
-            if fallback:
-                alt = self._verify(m_nn, xy[pi], xy[pj], generator, draws.get("nn"), rows)
-                take_nn = alt[3] > out[3]
-                out = tuple(
-                    torch.where(take_nn.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-                    for a, b in zip(alt, out))
-            chunk_out.append(out)
+            kept = [(r, p) for r, p in enumerate(map(tuple, batch[lo:hi].tolist()))
+                    if p in keep] if keep else ()
+            with span("neural.lightglue"):
+                m = self._lightglue(desc[pi], desc[pj], xy[pi], xy[pj], valid[pi], valid[pj],
+                                    hw, kept)
+            count("neural.lightglue_pairs", hi - lo)
+            with span("neural.verify"):
+                out = self._verify(m, xy[pi], xy[pj], generator, draws.get("lightglue"), rows)
+                take_nn = none_won
+                if fallback:
+                    alt = self._verify(m_nn, xy[pi], xy[pj], generator, draws.get("nn"), rows)
+                    take_nn = alt[3] > out[3]
+                    out = tuple(
+                        torch.where(take_nn.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+                        for a, b in zip(alt, out))
+            chunk_out.append(out + (take_nn,))
         return chunk_out
 
     def _match_sharded(self, mesh, desc, xy, valid, pairs, generator, chunk, hw,
@@ -334,9 +383,9 @@ class NeuralMatcher:
                       generator_state=None if generator is None else generator.get_state(),
                       lightglue=None)
         rank0 = dict(common, matcher=self, desc=desc, xy=xy, valid=valid)
-        host = dict(common, desc=desc.cpu(), xy=xy.cpu(), valid=valid.cpu())
+        host = dict(common, desc=pull(desc), xy=pull(xy), valid=pull(valid))
         if self.matcher_kind == "lightglue":
-            host["lightglue"] = {k: v.cpu() for k, v in self.lg.state_dict().items()}
+            host["lightglue"] = {k: pull(v) for k, v in self.lg.state_dict().items()}
         res = mesh.call(_neural_match_shard, [rank0] + [host] * (mesh.world - 1))
         own, state = res[0]
         if generator is not None:
@@ -366,7 +415,7 @@ def _neural_match_shard(mesh, p: dict):
     with torch.no_grad():
         out = nm._match_chunks(desc, xy, valid, p["pairs"], gen, p["chunk"], p["hw"],
                                p["sample_indices"], shard=(mesh.data_index, mesh.shape["data"]))
-    fields = [torch.cat(f, dim=0).cpu().numpy() for f in zip(*out)] if out else None
+    fields = [pull(torch.cat(f, dim=0)).numpy() for f in zip(*out)] if out else None
     if mesh.rank == 0:
         return fields, (None if gen is None else gen.get_state())
     return None if mesh.model_index else fields

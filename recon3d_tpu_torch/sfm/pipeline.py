@@ -59,12 +59,16 @@ from recon3d_tpu_torch.sfm.bundle import bundle_adjust_log, kp_table_of
 
 
 def _pad_pow2(n: int, lo: int = 256, hi: int = 16384, factor: int = 4) -> int:
-    """Pad a data-dependent size to a geometric bucket (default x4
-    growth), so that device-facing batches take few distinct shapes; the
-    padded slots are masked."""
+    """Pad a data-dependent size to a bucket that holds it, so that
+    device-facing batches take few distinct shapes; the padded slots are
+    masked. Up to `hi` the buckets grow geometrically from `lo` (default
+    x4); past it they are multiples of `hi`, so a larger size pads by less
+    than `hi` and never gets a bucket below itself."""
     c = lo
     while c < n and c < hi:
         c *= factor
+    if c < n:
+        c = -(-n // hi) * hi
     return c
 
 
@@ -340,6 +344,7 @@ class SfMPipeline:
                 with span("extract.kp_pull") as sp:
                     xy_all = pull(torch.stack([f.xy for f in self.features])).numpy()
                     valid_all = pull(torch.stack([f.valid for f in self.features])).numpy()
+                count("neural.keypoints", int(valid_all.sum()))
             else:
                 # stacked (V, ...) device tensors; per-image views only on demand
                 stacked = self.extractor.extract_batch(self.image_set.gray, timings=tm)
