@@ -96,9 +96,13 @@ Phases, each of which passes or raises:
      PatchMatch's, gated at NEURAL_SPARSE_GATE and CLI_DENSE_GATE; (b)
      SfMPipeline(neural_mode=True) with matcher="lightglue" (the bundled
      checkpoint at full width) on the first LIGHTGLUE_VIEWS views, gated at
-     LIGHTGLUE_GATE; (c) one match_pairs_batched chunk of 8 pairs at 2,048
-     keypoints: ms a pair, peak memory, and LightGlue's operations against
-     the card's float32 peak;
+     LIGHTGLUE_GATE, the attention kernel launched 4 times a layer of every
+     LightGlueNet run; (c) one match_pairs_batched chunk of 8 pairs at 2,048
+     keypoints: 36 attention launches, ms a pair, peak memory, and
+     LightGlue's operations against the card's float32 peak; (d) the
+     attention kernel at that chunk's shape, self and cross, against its
+     float32 bound, its plain version and scaled_dot_product_attention's
+     math backend (`attention_timing`);
  17. train: the neural front end's training path at full width: (a)
      `python -m recon3d_tpu_torch.neural.pretrain` (SuperPoint from scratch,
      one round of 192 steps at batch 32 of 128x128) in a subprocess, its
@@ -174,6 +178,7 @@ sys.modules["tests"] = _tests
 from recon3d_tpu_torch.cli import main as cli_main  # noqa: E402
 from recon3d_tpu_torch.io.colmap import load_colmap_text, save_colmap_text  # noqa: E402
 from recon3d_tpu_torch.io.ply import load_mesh_ply, load_ply  # noqa: E402
+from recon3d_tpu_torch.kernels import attention as attention_kernel  # noqa: E402
 from recon3d_tpu_torch.kernels import bundle as bundle_kernels, pointcloud, warp  # noqa: E402
 from tests.render import render_views  # noqa: E402
 from tests.torch_scene import (  # noqa: E402
@@ -371,6 +376,12 @@ K2_SOURCE = K3_SOURCE = "recon3d_tpu_torch/csrc/pointcloud.cu"
 BUNDLE_SOURCE = "recon3d_tpu_torch/csrc/bundle.cu"
 BUNDLE_REPLACES = ("recon3d_tpu/sfm/bundle.py:_lm_step (plain jnp: no Pallas kernel stands "
                    "behind it)")
+ATTENTION_SOURCE = "recon3d_tpu_torch/csrc/attention.cu"
+ATTENTION_REPLACES = ("recon3d_tpu/neural/lightglue.py's attention (plain jnp: no Pallas kernel "
+                      "stands behind it)")
+# LightGlue's attention at the neural cell's chunk: 8 pairs, 4 heads, 2,048
+# keypoint slots, head width 64.
+ATTENTION_SHAPE = (8, 4, 2048, 64)
 # Launches of each kernel of csrc/bundle.cu in one LM step at
 # tests/torch_bundle_check.py's CG_ITERS (24): pass A once more for the
 # back-substitution.
@@ -2176,8 +2187,9 @@ def lightglue_flops(N: int, D: int, layers: int) -> float:
 def neural_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
     """(a) The CLI's `IMAGES --neural --mvs`, K1 counted by stage and shape;
     (b) SfMPipeline(neural_mode=True, matcher="lightglue") on the first
-    LIGHTGLUE_VIEWS views; (c) one match_pairs_batched chunk of 8 pairs of
-    2,048 keypoint slots with the bundled LightGlue at full width."""
+    LIGHTGLUE_VIEWS views, its attention launches counted; (c) one
+    match_pairs_batched chunk of 8 pairs of 2,048 keypoint slots with the
+    bundled LightGlue at full width; (d) `attention_timing`."""
     import dataclasses
 
     from recon3d_tpu_torch.config import ReconstructionConfig
@@ -2206,12 +2218,24 @@ def neural_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
     cfg = cfg.replace(neural=dataclasses.replace(cfg.neural, matcher="lightglue"))
     pipe = SfMPipeline(calibration_path=str(work / "calibration.npz"), neural_mode=True,
                        config=cfg, device="cuda")
+    # every LightGlueNet run of the reconstruction: 4 attention launches a layer
+    lightglue_runs = [0]
+    run_lightglue = pipe.matcher._lightglue
+
+    def counted_lightglue(*a, **kw):
+        lightglue_runs[0] += 1
+        return run_lightglue(*a, **kw)
+
+    pipe.matcher._lightglue = counted_lightglue
+    attention_kernel.counts.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pipe.reconstruct(str(work / "images"), max_images=LIGHTGLUE_VIEWS)
     torch.cuda.synchronize()
     lg_wall = time.perf_counter() - t0
+    pipe.matcher._lightglue = run_lightglue
+    attention_launches = attention_kernel.counts.kernel
     st = pipe.stats
     lg = {"views": LIGHTGLUE_VIEWS, "wall_s": lg_wall, "num_cameras": st["num_cameras"],
           "num_points": st["num_points"], "num_pairs": st["num_pairs"],
@@ -2223,10 +2247,15 @@ def neural_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
                                          "init_time", "incremental_time", "final_ba_time",
                                          "total_time")},
           "peak_bytes": torch.cuda.max_memory_allocated(),
-          "matcher_kind": pipe.matcher.matcher_kind}
+          "matcher_kind": pipe.matcher.matcher_kind,
+          "lightglue_runs": lightglue_runs[0], "attention_launches": attention_launches}
     print("[neural lightglue] " + json.dumps(lg), flush=True)
     if lg["matcher_kind"] != "lightglue":
         raise AssertionError("neural lightglue: the matcher is not LightGlue")
+    a_run = 4 * pipe.matcher.config.lightglue_layers
+    if lightglue_runs[0] == 0 or attention_launches != a_run * lightglue_runs[0]:
+        raise AssertionError(f"neural lightglue: {attention_launches} attention launches in "
+                             f"{lightglue_runs[0]} LightGlue runs, not {a_run} a run")
     check_sparse(st, lg["pose_errors"], LIGHTGLUE_GATE, "neural lightglue")
 
     # (c) one chunk of 8 pairs at 2,048 keypoint slots
@@ -2255,9 +2284,13 @@ def neural_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    attention_kernel.counts.reset()
     chunk()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
+    if attention_kernel.counts.kernel != a_run:
+        raise AssertionError(f"neural chunk: {attention_kernel.counts.kernel} attention "
+                             f"launches in one chunk, not {a_run}")
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -2274,7 +2307,62 @@ def neural_phase(work: Path, scene: dict, card: str, shapes: list) -> dict:
              "network_tflop_s": flops / (net_ms * 1e-3) / 1e12,
              "f32_bound_ms": bound_ms, "share_of_f32_peak": bound_ms / net_ms}
     print("[neural chunk] " + json.dumps(bench), flush=True)
-    return {"phase": "neural", "card": card, "cli": cli, "lightglue": lg, "chunk": bench}
+    timing = attention_timing(card)
+    return {"phase": "neural", "card": card, "cli": cli, "lightglue": lg, "chunk": bench,
+            "attention": timing}
+
+
+def attention_timing(card: str) -> dict:
+    """LightGlue's attention kernel at the neural cell's chunk
+    (ATTENTION_SHAPE), self-attention (q, k, v of one set, every key valid)
+    and cross-attention (keys of the other set, a tenth padded), q, k and v
+    as the projections leave them: its device time back to back (CUDA
+    events), its float32 bound (4 B H N^2 Dh operations at 67 TFLOP/s), the
+    plain version's time, and scaled_dot_product_attention's math backend
+    in float32 (library_ms: a yardstick the port never calls); the kernel's
+    and the plain version's largest error against the plain version in
+    float64."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, H, N, Dh = ATTENTION_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def heads(x):
+        return x.reshape(B, N, H, Dh).transpose(1, 2)
+
+    q, k0, v0, k1, v1 = (heads(torch.randn((B, N, H * Dh), generator=g, device="cuda") * 2.0)
+                         for _ in range(5))
+    every = torch.ones((B, N), dtype=torch.bool, device="cuda")
+    padded = torch.rand((B, N), generator=g, device="cuda") >= 0.1
+    bound_ms = 1e3 * 4.0 * B * H * N * N * Dh / F32_OPS_PER_S
+    out = {"shape": list(ATTENTION_SHAPE), "bound_ms": bound_ms, "bound_by": "float32 FMAs"}
+    for name, kk, vv, valid in (("self", k0, v0, every), ("cross", k1, v1, padded)):
+        mask = valid[:, None, None, :]
+
+        def kernel():
+            return attention_kernel.launch(q, kk, vv, valid)
+
+        def plain():
+            return attention_kernel.attention_plain(q, kk, vv, valid)
+
+        def library():
+            with sdpa_kernel(SDPBackend.MATH):
+                return torch.nn.functional.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)
+
+        exact = attention_kernel.attention_plain(q.double(), kk.double(), vv.double(), valid)
+        err = (kernel().double() - exact).abs().max().item()
+        err_plain = (plain().double() - exact).abs().max().item()
+        del exact
+        attention_kernel.counts.reset()
+        ms = cuda_ms(kernel, 20)
+        launches = attention_kernel.counts.kernel
+        out[name] = {"ms": ms, "share_of_bound": bound_ms / ms, "plain_ms": cuda_ms(plain, 10),
+                     "library_ms": cuda_ms(library, 10), "max_abs_err": err,
+                     "plain_max_abs_err": err_plain, "launches_timed": launches}
+        if launches != 21 or err > 2.0 * err_plain + 1e-7:
+            raise AssertionError(f"attention kernel ({name}): {out[name]}")
+    print(json.dumps({"phase": "attention", "card": card, **out}), flush=True)
+    return out
 
 # SuperPoint's convolutions: name, in, out, kernel, the level's stride.
 SP_CONVS = (("conv1a", 1, 64, 3, 1), ("conv1b", 64, 64, 3, 1), ("conv2a", 64, 64, 3, 2),
@@ -3091,7 +3179,7 @@ def main() -> int:
     with ThreadPoolExecutor(4) as pool:
         builds = [(name, pool.submit(fn)) for name, fn in (
             ("nvcc", warp.build), ("nvcc", pointcloud.build), ("nvcc", bundle_kernels.build),
-            ("g++", native.build))]
+            ("nvcc", attention_kernel.build), ("g++", native.build))]
         for tool, future in builds:
             lib_path, build_s, log = future.result()
             print(f"[build] {lib_path.name}: {build_s:.2f} s with {tool}"
@@ -3254,6 +3342,15 @@ def main() -> int:
         "ms": ba["step_ms"], "device_ms": ba["step_device_ms"], "plain_ms": ba["plain_step_ms"],
         "bound_ms": sum(k["bound_us"] * k["launches_a_step"] for k in ba["kernels"].values()) / 1e3,
         "bound_by": "bytes", "library_ms": None, "measured": ba})
+    # LightGlue's attention: the LightGlue run's launches (4 a layer of every
+    # LightGlueNet run) and the kernel at the neural cell's chunk.
+    at = neural["attention"]
+    kernels.append({
+        "name": "lightglue_attention", "route": "cuda", "source": ATTENTION_SOURCE,
+        "replaces": ATTENTION_REPLACES, "max_abs_err": at["cross"]["max_abs_err"],
+        "lightglue_run_launches": neural["lightglue"]["attention_launches"],
+        "ms": at["self"]["ms"], "plain_ms": at["self"]["plain_ms"], "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"], "library_ms": at["self"]["library_ms"], "measured": at})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,16 @@ layers run over padded keypoint sets with masks, and matches are the
 mutual argmax of the padded score matrix.
 
 Every function takes a leading batch of pairs: (B, N, ...) where the JAX
-functions take (N, ...) under vmap. Attention is written as the JAX code
-writes it, matrix products and a masked softmax with -1e9, and not as
-scaled_dot_product_attention, whose fused backends sum in another order.
-Layer names are those of the JAX package's checkpoints (input_proj,
+functions take (N, ...) under vmap. In training mode the attention is
+kernels/attention.py::attention_plain, the JAX code's formula in the JAX
+code's order: matrix products and a softmax over logits masked with -1e9.
+In eval mode it is kernels/attention.py::attention: the same plain version
+on the CPU, and on the card one hand-written kernel (csrc/attention.cu)
+that computes the same function in float32 with an online softmax, and so
+sums in another order than the JAX code. The kernel has no backward: on
+the card an eval-mode call whose inputs autograd would record raises, so
+run it under no_grad or on parameters that do not require grad, as
+neural/matcher.py does. Layer names are those of the JAX package's checkpoints (input_proj,
 layer0 ... layer8, final_proj, matchability, rotary_freqs).
 """
 
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from recon3d_tpu_torch.kernels.attention import attention, attention_plain
 from recon3d_tpu_torch.ops.select import argmax_first
 
 
@@ -70,18 +77,14 @@ class Attention(nn.Module):
         return x.reshape(B, N, self.num_heads, -1).transpose(1, 2)   # (B, H, N, Dh)
 
     def forward(self, q_in, k_in, v_in, k_valid, q_rot=None, k_rot=None):
-        Dh = self.dim // self.num_heads
         q = self._heads(self.to_q(q_in))
         k = self._heads(self.to_k(k_in))
         v = self._heads(self.to_v(v_in))
         if q_rot is not None:
             q = apply_rotary(q, *q_rot)
             k = apply_rotary(k, *k_rot)
-        att = torch.matmul(q, k.transpose(-1, -2)) / float(Dh) ** 0.5
-        att = torch.where(k_valid[:, None, None, :], att, -1e9)
-        out = torch.matmul(torch.softmax(att, dim=-1), v)
-        B, _, N, _ = out.shape
-        return self.to_out(out.transpose(1, 2).reshape(B, N, self.dim))
+        fn = attention_plain if self.training else attention
+        return self.to_out(fn(q, k, v, k_valid))
 
 
 class MessageUpdate(nn.Module):

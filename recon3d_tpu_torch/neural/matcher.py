@@ -149,8 +149,9 @@ class NeuralMatcher:
                 raise RuntimeError(
                     "matcher='lightglue' requested but no weights are available "
                     "(no lightglue_weights path and no bundled checkpoint).")
-        self.sp.to(self.device).eval()
-        self.lg.to(self.device).eval()
+        # inference only: LightGlue's attention kernel has no backward
+        self.sp.to(self.device).eval().requires_grad_(False)
+        self.lg.to(self.device).eval().requires_grad_(False)
         self._loaded = True
 
     # -- extraction ----------------------------------------------------------

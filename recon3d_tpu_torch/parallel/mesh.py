@@ -387,12 +387,13 @@ def make_mesh(
     world = dp * mp
     backend = "nccl" if dev.type == "cuda" and not share_device else "gloo"
     if dev.type == "cuda":
-        # build K1 and the bundle kernels once, before the ranks start: they
-        # load the same libraries
-        from recon3d_tpu_torch.kernels import bundle, warp
+        # build K1, the bundle kernels and LightGlue's attention once, before
+        # the ranks start: they load the same libraries
+        from recon3d_tpu_torch.kernels import attention, bundle, warp
 
         warp.build()
         bundle.build()
+        attention.build()
         torch.cuda.set_device(_rank_device(dev, 0, share_device))
     for k, v in _loopback_env().items():
         os.environ.setdefault(k, v)

@@ -5,8 +5,9 @@ launch loads (and on a fresh checkout builds with nvcc) its library. Left
 alone, both land inside whatever stage touches the card first.
 
 warm_device_async(device) moves them off the critical path: a daemon
-thread creates the context, loads K1's library through kernels/warp.py and
-the bundle adjustment kernels' through kernels/bundle.py, and makes one
+thread creates the context, loads K1's library through kernels/warp.py,
+the bundle adjustment kernels' through kernels/bundle.py and LightGlue's
+attention kernel's through kernels/attention.py, and makes one
 host->device and one device->host copy, while the caller does
 its host-side work. On the CPU it makes one tiny tensor op.
 
@@ -29,11 +30,12 @@ def _warm(device: str) -> None:
 
         dev = torch.device(device)
         if dev.type == "cuda":
-            from recon3d_tpu_torch.kernels import bundle, warp
+            from recon3d_tpu_torch.kernels import attention, bundle, warp
 
             torch.cuda.init()
             warp._library()
             bundle._library()
+            attention._library()
         # one h2d + one d2h: float() waits for the result
         float(torch.ones(1).to(dev) + 1.0)
     except Exception:
